@@ -5,20 +5,25 @@
 
 Run from the root of a checkout, on a machine with one Hopper GPU
 (compute capability 9.0), nvcc and g++. It builds the port's kernels from
-the checkout's sources, then runs five phases, and fails (exit code 1,
+the checkout's sources, then runs six phases, and fails (exit code 1,
 no result line) if any of them fails:
 
   1. device   CUDA present with capability (9, 0); prints the card's
               name and power limit, torch's CUDA and nvcc's versions
-  2. build    the wavefront kernel (nvcc, sm_90a) and the native host
-              library (g++); prints the seconds each took and
+  2. build    the wavefront and ALU-probe kernels (nvcc, sm_90a, one
+              process each, started together; their ptxas lines) and the
+              native host library (g++); prints the seconds each took and
               native_host: true|false (false = the exact numpy host
               fallbacks ran)
   3. kernels  the wavefront kernel bit for bit against its plain PyTorch
               version on the card (B=64, Q=256, the phase-4 reference):
-              full-length reads, clipped reads, std=True; window_top5
-              and topk_candidates on the card against CPU copies, with
-              planted ties
+              full-length reads, clipped reads, std=True; the same for
+              its carry mode chained over three uneven segments (scores
+              and outgoing state against the plain carry chain, and the
+              chained scores against the one-shot launch); the chunked
+              top-5 on the card against window_top5 of the one-shot
+              kernel; window_top5 and topk_candidates on the card against
+              CPU copies, with planted ties
   4. main     R9 DNA `dtw -p 50 -q 250` through run_dtw on device="cuda"
               (B=512, 8 threads) over a seeded random 29,903-base
               reference (the length of the nCoV-2019 reference), both
@@ -27,9 +32,33 @@ no result line) if any of them fails:
               the PAF of a 96-read subset byte-identical to a
               device="cpu" run, and at least 80% of the reads must map
               over the position they were drawn from
-  5. times    the kernel's ms per launch at the phase-4 shape (median of
-              5 after a warm-up, CUDA events), its Gcell/s and bound, and
-              the plain version's ms on the card
+  5. times    the ALU probe through its entry point
+              (sigfish_tpu_torch.scripts.bench_alu_peak): Gop/s per mode,
+              each mode bit for bit against its plain version; the
+              wavefront kernel's ms per launch at the phase-4 shape and
+              the carry kernel's per segment launch (B=512, Q=256,
+              Ds=32,000), each with its Gcell/s, its bound against the
+              data-sheet rate and against the probe's max(mix, mix2)
+              in wavefront steps, and the plain version's ms on the
+              card; the outputs of those timed plain runs hold the
+              kernels bit for bit at the main path's shapes: the one-shot
+              scores, and the carry kernel's scores and outgoing state
+              over two chained segments (fresh, then carried state)
+  6. chunked  the chunked reference at full width: a seeded random
+              4,641,652-base reference (the length of E. coli K-12
+              MG1655), both strands (about 9.28M columns), 1,536 reads in
+              3 batches, one in ten clipped, through the automatic
+              chunked route (ref_chunk=0); the carry launch count must be
+              > 0, the PAF of a 128-read subset byte-identical to the
+              one-shot route (ref_chunk=-1) on the card, and at least 80%
+              of the reads must map over their origin. Prints reads/s,
+              the one-shot clip-group launches, the device seconds of the
+              main fold and of the clip groups (CUDA events, in a
+              --profile-cpu run), and the peak device memory beside what
+              the one-shot (512, D) score buffer alone would take. Before
+              that, the phase-4 subset through a forced ref_chunk of
+              4,000 diagonals on the card is held byte for byte to the
+              same on the CPU.
 
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -59,12 +88,18 @@ PREFIX = 50             # -p
 SUBSET = 96             # reads checked byte for byte against the CPU path
 SEED = 2019
 
+# workload of phase 6: E. coli K-12 MG1655 (NCBI NC_000913.3) length
+ECOLI_BASES = 4_641_652
+N6_READS = 1_536
+SUBSET6 = 128           # reads checked byte for byte against the one-shot route
+CPU_REF_CHUNK = 4_000   # forced segment of the card-vs-CPU chunked check
+
+# ALU probe iterations per launch (the bench's default)
+PROBE_ITERS = 16384
+
 # H100 SXM peak rates: f32 outside the tensor cores, and HBM3
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
-# f32 ALU operations per DP cell: sub, abs, min(left, diag), select(reset),
-# min(up, .), add, select(free start), and the emitted-lane select
-OPS_PER_CELL = 8
 
 
 def fail(msg: str) -> None:
@@ -110,8 +145,10 @@ def make_workload(d: str, n_bases: int, n_reads: int, seed: int):
     truth = {}
     with Slow5Writer(bl, header_data=[{"experiment_type": "genomic_dna"}]) as w:
         for i in range(n_reads):
-            # one read in ten is short: 50 + 100 events < prefix + query
-            n_ev = 150 if i % 10 == 9 else 400
+            # one read in ten is short enough to be clipped: the detector
+            # finds about 2.1 events per pore-model level, so 120 levels
+            # give 240-275 events, fewer than prefix + query = 300
+            n_ev = 120 if i % 10 == 9 else 400
             strand = "+" if rng.random() < 0.5 else "-"
             s = int(rng.integers(0, n_bases - n_ev - k))
             sub = (seq if strand == "+" else rc)[s : s + n_ev + k - 1]
@@ -139,18 +176,21 @@ def subset_blow5(bl: str, out: str, keep) -> None:
                 dst.write_record(rec)
 
 
-def run_port(fa: str, bl: str, device: str, state=None, profile: bool = False):
+def run_port(fa: str, bl: str, device: str, state=None, profile: bool = False,
+             ref_chunk: int = 0):
     """run_dtw over a whole file; returns (PAF text, Core, seconds).
     profile=True runs the host stages one by one with their timers
-    (--profile-cpu) and drains each batch before the next."""
-    from sigfish_tpu_torch.runtime.pipeline import Core, Options, run_dtw
+    (--profile-cpu) and drains each batch before the next; on the card
+    the Core then also records CUDA events around each route's device
+    work (Core.spans, Core.span_seconds)."""
+    from sigfish_tpu_torch.runtime import pipeline as pl
 
-    opt = Options(batch_size=BATCH, num_thread=THREADS, prefix_size=PREFIX,
-                  query_size=W, device=device, profile=profile)
-    core = Core(fa, bl, opt, state=state)
+    opt = pl.Options(batch_size=BATCH, num_thread=THREADS, prefix_size=PREFIX,
+                     query_size=W, device=device, profile=profile, ref_chunk=ref_chunk)
+    core = pl.Core(fa, bl, opt, state=state)
     out = io.StringIO()
     t0 = time.time()
-    run_dtw(core, out)
+    pl.run_dtw(core, out)
     if device == "cuda":
         import torch
 
@@ -158,6 +198,16 @@ def run_port(fa: str, bl: str, device: str, state=None, profile: bool = False):
     dt = time.time() - t0
     core.close()
     return out.getvalue(), core, dt
+
+
+def core_state(fa: str, bl: str):
+    """The Core state (pore model, reference layout) of a FASTA, built once."""
+    from sigfish_tpu_torch.runtime.pipeline import Core, Options
+
+    probe = Core(fa, bl, Options(query_size=W, prefix_size=PREFIX, num_thread=1, device="cuda"))
+    state, pad_q = probe.state, probe.pad_q
+    probe.close()
+    return state, pad_q
 
 
 def overlap_share(paf: str, truth: dict) -> float:
@@ -180,6 +230,49 @@ def bits_equal(a, b) -> bool:
     )
 
 
+def abs_err(a, b) -> float:
+    """max |a - b|, with equal values (infinities included) counted 0."""
+    import torch
+
+    return float(torch.where(a == b, 0.0, (a - b).abs()).max())
+
+
+def median_ms(fn, n: int = 5) -> tuple[float, list[float]]:
+    """Median device ms of fn() over n calls after one warm-up (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times), times
+
+
+def once_ms(fn):
+    """(device ms, result) of one call of fn() (CUDA events), no warm-up."""
+    import torch
+
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), out
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least ms the card could take: the larger of the operations
+    over the f32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def main() -> None:
     try:
         import torch
@@ -194,9 +287,16 @@ def main() -> None:
     import numpy as np
 
     from sigfish_tpu_torch.kernels import build as kbuild
+    from sigfish_tpu_torch.ops import alu_peak as apm
     from sigfish_tpu_torch.ops import layout
     from sigfish_tpu_torch.ops import sdtw_wavefront as wfm
+    from sigfish_tpu_torch.ops.sdtw_wavefront import OPS_PER_CELL
     from sigfish_tpu_torch.ops.candidates_dev import topk_candidates, window_top5
+    from sigfish_tpu_torch.ops.chunked_ref import (
+        chunk_segment_diags,
+        prepare_chunked_inputs,
+        sdtw_wavefront_chunked_top5,
+    )
 
     # ---------------------------------------------------------------- 1
     phase("1 device")
@@ -215,7 +315,7 @@ def main() -> None:
     phase("2 build")
     t0 = time.time()
     reports = kbuild.build_all()
-    print(f"kernels built in {time.time() - t0:.2f} s")
+    print(f"kernels {', '.join(reports)} built in {time.time() - t0:.2f} s")
     for kname, rep in reports.items():
         for ln in rep.splitlines():
             if "registers" in ln or "spill" in ln:
@@ -227,17 +327,21 @@ def main() -> None:
     print(f"native host library built and loaded in {time.time() - t0:.2f} s")
     print(f"native_host: {'true' if native_ok else 'false'}")
 
+    def fresh_state(B: int, Q: int):
+        return (
+            torch.full((B, Q), layout.BIG, device=dev),
+            torch.full((B, Q), layout.BIG, device=dev),
+            torch.full((1, Q), layout.PAD, device=dev),
+            torch.zeros((1, Q), device=dev),
+        )
+
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.time()
         fa, bl, truth = make_workload(work, N_BASES, N_READS, SEED)
         print(f"workload: {N_READS} reads over {N_BASES} bases, made in {time.time() - t0:.2f} s")
 
-        from sigfish_tpu_torch.runtime.pipeline import Core, Options
-
-        probe = Core(fa, bl, Options(query_size=W, prefix_size=PREFIX, num_thread=1, device="cuda"))
-        state, pad_q = probe.state, probe.pad_q
-        probe.close()
+        state, pad_q = core_state(fa, bl)
         R = state.ref_cat.shape[0]
         ypad_h, rspad_h, D = layout.prepare_wavefront_inputs(state.ref_cat, state.reset, pad_q)
         ypad = torch.from_numpy(ypad_h).to(dev)
@@ -255,9 +359,12 @@ def main() -> None:
         qb, qlens, _ = layout.make_query_batch(qlist, pad_q=pad_q)
         qb_k, fs = layout.shift_queries_for_clip(qb, qlens, W - 1)
         max_err = 0.0
+        carry_err = 0.0
         full = [rng.standard_normal(W).astype(np.float32) for _ in range(B3)]
+        q_full = layout.make_query_batch(full, pad_q=pad_q)[0]
+        cuts = [0, 20_000, 40_007, D]  # three uneven segments
         for label, q_h, fs_h, std in (
-            ("full-length", layout.make_query_batch(full, pad_q=pad_q)[0], None, False),
+            ("full-length", q_full, None, False),
             ("clipped", qb_k, fs, False),
             ("std", qb_k, fs, True),
         ):
@@ -269,7 +376,7 @@ def main() -> None:
             want = wfm.wavefront_plain(q, ypad, rspad, W - 1, sl, std)
             torch.cuda.synchronize()
             ok = bits_equal(got, want)
-            err = float((got - want).abs().max())
+            err = abs_err(got, want)
             max_err = max(max_err, err)
             print(f"wavefront {label}: B={q.shape[0]} Q={q.shape[1]} D={D} bitwise_equal={ok} "
                   f"max_abs_err={err} (plain {time.time() - t0:.1f} s)")
@@ -278,9 +385,49 @@ def main() -> None:
             if label == "clipped":
                 scores = got
 
+            # the carry mode, chained, against the plain carry chain
+            st_k = st_p = fresh_state(B3, pad_q)
+            parts = []
+            ok = True
+            t0 = time.time()
+            for lo, hi in zip(cuts[:-1], cuts[1:]):
+                out_k = wfm.sdtw_wavefront_carry(q, ypad[:, lo:hi], rspad[:, lo:hi], *st_k,
+                                                 W - 1, sl, std)
+                out_p = wfm.wavefront_plain(q, ypad[:, lo:hi], rspad[:, lo:hi], W - 1, sl, std, *st_p)
+                torch.cuda.synchronize()
+                for a, b in zip(out_k, out_p):
+                    ok = ok and bits_equal(a, b)
+                    carry_err = max(carry_err, abs_err(a, b))
+                st_k, st_p = out_k[1:], out_p[1:]
+                parts.append(out_k[0])
+            one = bits_equal(torch.cat(parts, dim=1), got)
+            print(f"carry {label}: segments {cuts}, scores and state bitwise_equal={ok}, "
+                  f"chained == one launch: {one}, max_abs_err={carry_err} "
+                  f"(plain {time.time() - t0:.1f} s)")
+            if not ok:
+                fail(f"carry kernel differs from its plain version ({label})")
+            if not one:
+                fail(f"chained carry launches differ from one wavefront launch ({label})")
+            del got, want, parts, st_k, st_p, out_k, out_p
+
+        # the chunked top-5 (carry kernel + fold) against the one-shot
+        # kernel + window_top5, on the card
+        valid_d = torch.from_numpy(valid_h).to(dev)
+        yps, rps, vs, Ds3, nwin = prepare_chunked_inputs(
+            state.ref_cat, state.reset, valid_h, pad_q, W, target=16_000)
+        q = torch.from_numpy(q_full).to(dev)
+        got = sdtw_wavefront_chunked_top5(
+            q, torch.from_numpy(yps).to(dev), torch.from_numpy(rps).to(dev),
+            torch.from_numpy(vs).to(dev), W - 1, W, nwin)
+        want = window_top5(wfm.sdtw_wavefront(q, ypad, rspad, W - 1), valid_d, R, W, pack=True)
+        ok = bits_equal(got, want)
+        print(f"chunked top-5: {yps.shape[0]} segments of {Ds3} diagonals, "
+              f"bitwise_equal to window_top5(one-shot)={ok}")
+        if not ok:
+            fail("the chunked top-5 on the card differs from the one-shot route's")
+
         # the candidate reduction on the card against CPU copies, on the
         # kernel's scores and on small-integer scores full of ties
-        valid_d = torch.from_numpy(valid_h).to(dev)
         u_d = torch.from_numpy(u_h).to(dev)
         qlens_d = torch.from_numpy(qlens).to(dev)
         ties = torch.from_numpy(rng.integers(0, 6, size=(B3, D)).astype(np.float32)).to(dev)
@@ -320,7 +467,9 @@ def main() -> None:
         print(f"stages, --profile-cpu run ({pdt:.3f} s, unoverlapped): load "
               f"{pcore.load_db_time:.3f} s, parse {pcore.parse_time:.3f} s, events "
               f"{pcore.event_time:.3f} s, normalise {pcore.normalise_time:.3f} s, "
-              f"device + backtrack + PAF {pcore.dtw_time:.3f} s")
+              f"device + backtrack + PAF {pcore.dtw_time:.3f} s; device time of the one-shot "
+              f"route {pcore.span_seconds('oneshot'):.3f} s in {len(pcore.spans['oneshot'])} "
+              f"batches (CUDA events)")
         if ppaf != paf:
             fail("the --profile-cpu run's PAF differs from the overlapped run's")
 
@@ -330,8 +479,8 @@ def main() -> None:
         sub_bl = os.path.join(work, "subset.blow5")
         subset_blow5(bl, sub_bl, set(keep))
         cpu_paf, _, cpu_dt = run_port(fa, sub_bl, "cpu", state=state)
-        want = "".join(by_id[r] + "\n" for r in keep if r in by_id)
-        ok = cpu_paf == want
+        want4 = "".join(by_id[r] + "\n" for r in keep if r in by_id)
+        ok = cpu_paf == want4
         print(f"PAF of {SUBSET} reads ({n_clip} clipped) on cpu vs cuda: "
               f"byte_identical={ok} (cpu {cpu_dt:.1f} s)")
         if not ok:
@@ -339,53 +488,226 @@ def main() -> None:
 
         # ------------------------------------------------------------ 5
         phase("5 times")
-        rng = np.random.default_rng(SEED + 2)
-        B5 = BATCH
-        q = torch.from_numpy(rng.standard_normal((B5, pad_q)).astype(np.float32)).to(dev)
-        before = wfm.sdtw_wavefront.launches
-        wfm.sdtw_wavefront(q, ypad, rspad, W - 1)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(5):
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            wfm.sdtw_wavefront(q, ypad, rspad, W - 1)
-            e1.record()
+        from sigfish_tpu_torch.scripts import bench_alu_peak
+
+        # the ALU probe through its entry point, counted as its own path
+        apm.alu_peak.launches = 0
+        probe = bench_alu_peak.main(["--iters", str(PROBE_ITERS)])
+        probe_launches = apm.alu_peak.launches
+        if probe_launches <= 0:
+            fail("the ALU probe launched no kernel")
+        # the ceiling of the sweep: the mix modes' best rate in wavefront
+        # steps, one step being one DP cell (ops/alu_peak.py)
+        sol = probe["ceiling_gsteps"]
+        print(f"ALU probe ({probe_launches} launches): "
+              + ", ".join(f"{m} {g:.1f}" for m, g in probe["peak_gops"].items())
+              + f" Gop/s (the JAX probe's units: a roll counts one op per value); mix2/mix "
+              f"{probe['mix2_over_mix']:.3f}; ceiling max(mix, mix2) = {sol:.1f} Gstep/s; "
+              f"card: {smi}")
+        x = torch.from_numpy(np.random.default_rng(0).random((BATCH, apm.Q), np.float32)).to(dev)
+        probe_err = 0.0
+        for mode in apm.MODES:
+            got = apm.alu_peak(x, mode, PROBE_ITERS)
             torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
-        ms = statistics.median(times)
-        wfm.sdtw_wavefront.launches = before  # timing launches are not the main path's
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        wfm.wavefront_plain(q, ypad, rspad, W - 1)
-        e1.record()
-        torch.cuda.synchronize()
-        plain_ms = e0.elapsed_time(e1)
-        cells = B5 * pad_q * D
-        ops = OPS_PER_CELL * cells
-        nbytes = 4 * (B5 * pad_q + 2 * D + B5 * D)
-        bound_ms = max(ops / PEAK_F32_OPS, nbytes / PEAK_BYTES) * 1e3
-        bound_by = "operations" if ops / PEAK_F32_OPS >= nbytes / PEAK_BYTES else "bytes"
+            plain_t, want = once_ms(lambda: apm.alu_peak_plain(x, mode, PROBE_ITERS))
+            if mode == "mix":
+                probe_plain_ms = plain_t
+            ok = bits_equal(got, want)
+            probe_err = max(probe_err, abs_err(got, want))
+            print(f"alu_peak {mode}: B={BATCH} Q={apm.Q} iters={PROBE_ITERS} bitwise_equal={ok}")
+            if not ok:
+                fail(f"the ALU probe kernel differs from its plain version ({mode})")
+        probe_ms = probe["peak_ms"]["mix"]
+        probe_bound_ms, probe_bound_by = bound(
+            OPS_PER_CELL * apm.step_count("mix", BATCH, PROBE_ITERS), 2 * 4 * BATCH * apm.Q)
+
+        # the one-shot kernel at the main path's shape: timed, and held
+        # bit for bit to the plain version's (timed) output
+        rng = np.random.default_rng(SEED + 2)
+        q = torch.from_numpy(rng.standard_normal((BATCH, pad_q)).astype(np.float32)).to(dev)
+        ms, times = median_ms(lambda: wfm.sdtw_wavefront(q, ypad, rspad, W - 1))
+        got = wfm.sdtw_wavefront(q, ypad, rspad, W - 1)
+        plain_ms, want = once_ms(lambda: wfm.wavefront_plain(q, ypad, rspad, W - 1))
+        ok = bits_equal(got, want)
+        max_err = max(max_err, abs_err(got, want))
+        print(f"wavefront B={BATCH} Q={pad_q} D={D}: bitwise_equal={ok}")
+        if not ok:
+            fail("wavefront kernel differs from its plain version at the main path's shape")
+        del got, want
+        cells = BATCH * pad_q * D
+        bound_ms, bound_by = bound(OPS_PER_CELL * cells, 4 * (BATCH * pad_q + 2 * D + BATCH * D))
         print(f"kernel time in the main path: about {launches * ms / 1e3:.3f} s of "
               f"run_dtw's {dt:.3f} s ({launches} launches x {ms:.3f} ms)")
-        print(f"wavefront B={B5} Q={pad_q} D={D}: {ms:.3f} ms per launch (median of {times}), "
+        print(f"wavefront B={BATCH} Q={pad_q} D={D}: {ms:.3f} ms per launch (median of {times}), "
               f"{cells / ms / 1e6:.1f} Gcell/s, bound {bound_ms:.3f} ms by {bound_by} "
               f"({OPS_PER_CELL} f32 ops/cell at {PEAK_F32_OPS / 1e12:.0f} TFLOP/s), "
+              f"{cells / sol / 1e6:.3f} ms at the probe's {sol:.1f} Gstep/s, "
               f"plain version {plain_ms:.1f} ms; card: {smi}")
 
-        result = {"kernels": [{
-            "name": "sdtw_wavefront",
-            "route": "cuda",
-            "source": "sigfish_tpu_torch/csrc/wavefront.cu",
-            "replaces": "sigfish_tpu/ops/sdtw_pallas.py:174",
-            "launches": launches,
-            "max_abs_err": max_err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None,
-        }]}
+        # the carry kernel at the chunked route's shape: its first two
+        # segments of the phase-4 reference, chained from a fresh state;
+        # timed on the first, and each held bit for bit (scores and the
+        # four outgoing state tensors) to the plain version's
+        yps, rps, _, Ds, _ = prepare_chunked_inputs(
+            state.ref_cat, state.reset, valid_h, pad_q, W, target=32768)
+        if yps.shape[0] < 2:
+            fail(f"the phase-4 reference gives {yps.shape[0]} segments of {Ds}; want 2")
+        yps = torch.from_numpy(yps).to(dev)
+        rps = torch.from_numpy(rps).to(dev)
+        st_k = st_p = fresh_state(BATCH, pad_q)
+        c_ms, c_times = median_ms(
+            lambda: wfm.sdtw_wavefront_carry(q, yps[0], rps[0], *st_k, W - 1))
+        plain_times = []
+        for s_i in range(2):
+            out_k = wfm.sdtw_wavefront_carry(q, yps[s_i], rps[s_i], *st_k, W - 1)
+            t, out_p = once_ms(
+                lambda: wfm.wavefront_plain(q, yps[s_i], rps[s_i], W - 1, None, False, *st_p))
+            plain_times.append(t)
+            ok = all(bits_equal(a, b) for a, b in zip(out_k, out_p))
+            carry_err = max([carry_err] + [abs_err(a, b) for a, b in zip(out_k, out_p)])
+            print(f"carry B={BATCH} Q={pad_q} Ds={Ds} segment {s_i} "
+                  f"({'fresh' if s_i == 0 else 'carried'} state): scores and state "
+                  f"bitwise_equal={ok}")
+            if not ok:
+                fail(f"carry kernel differs from its plain version at the chunked route's "
+                     f"shape (segment {s_i})")
+            st_k, st_p = out_k[1:], out_p[1:]
+        del out_k, out_p, st_k, st_p, yps, rps
+        c_plain_ms = plain_times[0]
+        c_cells = BATCH * pad_q * Ds
+        c_bound_ms, c_bound_by = bound(
+            OPS_PER_CELL * c_cells,
+            4 * (BATCH * pad_q + 2 * Ds + BATCH * Ds + 2 * (2 * BATCH * pad_q + 2 * pad_q)))
+        print(f"carry B={BATCH} Q={pad_q} Ds={Ds}: {c_ms:.3f} ms per segment launch (median of "
+              f"{c_times}), {c_cells / c_ms / 1e6:.1f} Gcell/s, bound {c_bound_ms:.3f} ms by "
+              f"{c_bound_by}, {c_cells / sol / 1e6:.3f} ms at the probe's {sol:.1f} Gstep/s, "
+              f"plain version {c_plain_ms:.1f} ms (fresh state; {plain_times[1]:.1f} ms "
+              f"carried); card: {smi}")
+        print(f"alu_peak mix B={BATCH} iters={PROBE_ITERS}: {probe_ms:.3f} ms per launch, bound "
+              f"{probe_bound_ms:.3f} ms by {probe_bound_by}, plain version {probe_plain_ms:.1f} ms")
+        del x
+
+        # ------------------------------------------------------------ 6
+        phase("6 chunked reference at full width")
+        # the phase-4 subset through forced small segments: card vs CPU
+        t0 = time.time()
+        g_paf, _, g_dt = run_port(fa, sub_bl, "cuda", state=state, ref_chunk=CPU_REF_CHUNK)
+        c_paf, _, c_dt = run_port(fa, sub_bl, "cpu", state=state, ref_chunk=CPU_REF_CHUNK)
+        ok = g_paf == c_paf == want4
+        print(f"ref_chunk={CPU_REF_CHUNK} (segments of {chunk_segment_diags(W, CPU_REF_CHUNK)} "
+              f"diagonals), {SUBSET} reads: cuda vs cpu byte_identical={ok}, and to the one-shot "
+              f"PAF (cuda {g_dt:.1f} s, cpu {c_dt:.1f} s)")
+        if not ok:
+            fail("the chunked route's PAF on the card differs from the CPU's")
+
+        work6 = os.path.join(work, "ecoli")
+        os.makedirs(work6)
+        t0 = time.time()
+        fa6, bl6, truth6 = make_workload(work6, ECOLI_BASES, N6_READS, SEED + 6)
+        state6, _ = core_state(fa6, bl6)
+        R6 = state6.ref_cat.shape[0]
+        D6 = layout.wavefront_diags(R6, pad_q)
+        oneshot_gb = 4 * BATCH * D6 / 1e9
+        print(f"workload: {N6_READS} reads over {ECOLI_BASES} bases, R={R6} columns, "
+              f"made in {time.time() - t0:.2f} s; the one-shot (512, {D6}) scores would "
+              f"take {oneshot_gb:.2f} GB")
+
+        wfm.sdtw_wavefront.launches = 0
+        wfm.sdtw_wavefront_carry.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        paf6, core6, dt6 = run_port(fa6, bl6, "cuda", state=state6)
+        carry_launches = wfm.sdtw_wavefront_carry.launches
+        clip_launches = wfm.sdtw_wavefront.launches
+        routes = core6.routes
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"run_dtw on cuda, ref_chunk=0: {core6.total_reads} reads, "
+              f"{len(paf6.splitlines())} PAF lines, {dt6:.3f} s, "
+              f"{core6.total_reads / dt6:.1f} reads/s end to end; card: {smi}")
+        print(f"carry launches {carry_launches}, one-shot clip-group launches {clip_launches}, "
+              f"routes {routes}; card: {smi}")
+        print(f"peak device memory {peak_gb:.3f} GB (max_memory_allocated) beside "
+              f"{oneshot_gb:.2f} GB for the one-shot (512, D) buffer alone; card: {smi}")
+        if carry_launches <= 0 or routes["chunked"] <= 0:
+            fail("the full-width run did not take the chunked route")
+        if core6.total_reads != N6_READS:
+            fail(f"{core6.total_reads} reads processed, want {N6_READS}")
+        share6 = overlap_share(paf6, truth6)
+        print(f"reads mapped over their origin: {share6:.4f}")
+        if share6 < 0.8:
+            fail(f"only {share6:.4f} of the reads map over the position they were drawn from")
+
+        ppaf6, pcore6, pdt6 = run_port(fa6, bl6, "cuda", state=state6, profile=True)
+        fold_s = pcore6.span_seconds("chunked")
+        clip_s = pcore6.span_seconds("clip_groups")
+        n_fold, n_clip_g = len(pcore6.spans["chunked"]), len(pcore6.spans["clip_groups"])
+        print(f"--profile-cpu run ({pdt6:.3f} s, unoverlapped): main fold {fold_s:.3f} s in "
+              f"{n_fold} folds, clip groups {clip_s:.3f} s in "
+              f"{n_clip_g} groups (device time, CUDA events); host stages: "
+              f"parse {pcore6.parse_time:.3f} s, events {pcore6.event_time:.3f} s, normalise "
+              f"{pcore6.normalise_time:.3f} s; the rest {pdt6 - fold_s - clip_s:.3f} s; "
+              f"card: {smi}")
+        if ppaf6 != paf6:
+            fail("the --profile-cpu run's PAF differs from the overlapped run's")
+        if (n_fold, n_clip_g) != (pcore6.routes["chunked"], pcore6.routes["clip_groups"]) \
+                or n_fold == 0:
+            fail(f"spans ({n_fold} folds, {n_clip_g} clip groups) do not match the routes "
+                 f"taken ({pcore6.routes})")
+
+        by_id6 = {ln.split("\t")[0]: ln for ln in paf6.splitlines()}
+        keep6 = [f"read{i:05d}" for i in range(SUBSET6)]
+        sub6 = os.path.join(work6, "subset.blow5")
+        subset_blow5(bl6, sub6, set(keep6))
+        one_paf, _, one_dt = run_port(fa6, sub6, "cuda", state=state6, ref_chunk=-1)
+        want6 = "".join(by_id6[r] + "\n" for r in keep6 if r in by_id6)
+        n_clip6 = sum(1 for i in range(SUBSET6) if i % 10 == 9)
+        ok = one_paf == want6
+        print(f"PAF of {SUBSET6} reads ({n_clip6} clipped) one-shot (ref_chunk=-1) vs chunked "
+              f"on cuda: byte_identical={ok} (one-shot {one_dt:.1f} s)")
+        if not ok:
+            fail("the chunked route's PAF differs from the one-shot route's")
+
+        result = {"kernels": [
+            {
+                "name": "sdtw_wavefront",
+                "route": "cuda",
+                "source": "sigfish_tpu_torch/csrc/wavefront.cu",
+                "replaces": "sigfish_tpu/ops/sdtw_pallas.py:174",
+                "launches": launches,
+                "max_abs_err": max_err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,
+            },
+            {
+                "name": "sdtw_wavefront_carry",
+                "route": "cuda",
+                "source": "sigfish_tpu_torch/csrc/wavefront.cu",
+                "replaces": "sigfish_tpu/ops/sdtw_pallas.py:211",
+                "launches": carry_launches,
+                "max_abs_err": carry_err,
+                "ms": c_ms,
+                "plain_ms": c_plain_ms,
+                "bound_ms": c_bound_ms,
+                "bound_by": c_bound_by,
+                "library_ms": None,
+            },
+            {
+                "name": "alu_peak",
+                "route": "cuda",
+                "source": "sigfish_tpu_torch/csrc/alu_peak.cu",
+                "replaces": "scripts/bench_vpu_peak.py:101",
+                "launches": probe_launches,
+                "max_abs_err": probe_err,
+                "ms": probe_ms,
+                "plain_ms": probe_plain_ms,
+                "bound_ms": probe_bound_ms,
+                "bound_by": probe_bound_by,
+                "library_ms": None,
+            },
+        ]}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -66,7 +66,7 @@ def make_dtw_parser(prog: str = "sigfish_tpu_torch dtw") -> argparse.ArgumentPar
     p.add_argument("--from-end", action="store_true", help="map the end portion of the query (not served yet)")
     p.add_argument("--profile-cpu", type=_yes_no, default=False, metavar="yes|no", help="process section by section with per-stage timers")
     p.add_argument("--host-stages", choices=["host", "device"], default="host", help="where eventization runs (only host is served yet)")
-    p.add_argument("--ref-chunk", type=int, default=0, metavar="INT", help="reference-axis chunking: 0 auto, -1 never (>0 not served yet) [0]")
+    p.add_argument("--ref-chunk", type=int, default=0, metavar="INT", help="reference-axis chunking: 0 auto (past 2^20 columns), -1 never, N>0 always, in segments of about N diagonals [0]")
     p.add_argument("-a", "--sam", action="store_true", help="output in SAM format (not served yet)")
     p.add_argument("--pore", choices=["r9", "r10", "rna004"], default=None, help="pore chemistry [auto] (only r9 is served yet)")
     p.add_argument("--ckpt", type=int, default=512, help="reference padding stride [512]")

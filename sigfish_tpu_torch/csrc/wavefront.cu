@@ -38,6 +38,15 @@
 // block-wide barrier: warps run free. What this leaves on the table (the
 // read count B bounds the number of warps, ~4 per SM at B=512) is later
 // work.
+//
+// Carry mode (CARRY = true, entry sf_wavefront_carry) also replaces
+// sdtw_pallas.py::_wavefront_carry_kernel: the same sweep over one reference
+// segment, with the two diagonals and the reference window read from an
+// incoming state before the first diagonal and written to an outgoing state
+// after the last. Segments chained through it give the scores of one pass
+// over their concatenation, bit for bit: the registers of the sweep are
+// exactly that state, so nothing is recomputed at a segment boundary. The
+// state costs 2*B*Q + 2*Q floats each way, nothing beside the cells.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,14 +58,29 @@ constexpr float kPad = 1.0e18f;
 constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int ROWS, bool STD>
+// Cross-segment state of the carry mode (CARRY = true), in the JAX
+// package's form (sdtw_pallas.py::sdtw_wavefront_carry): a1 = A_{d-1} and
+// a2 = roll(A_{d-2}) by one lane, (B, Q) each; ywin[i] = y[d-1-i] and
+// rswin[i] its reset flag as f32 0/1, (Q,) each. Null in the one-shot mode.
+struct Carry {
+  const float* a1_in;
+  const float* a2_in;
+  const float* ywin_in;
+  const float* rswin_in;
+  float* a1_out;
+  float* a2_out;
+  float* ywin_out;
+  float* rswin_out;
+};
+
+template <int ROWS, bool STD, bool CARRY>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 wavefront_kernel(const float* __restrict__ queries,    // (B, Q)
                  const float* __restrict__ ypad,       // (D,)
                  const float* __restrict__ rspad,      // (D,)
                  const int* __restrict__ start_lanes,  // (B,) or null
                  float* __restrict__ out,              // (B, D)
-                 int B, int D, int lane) {
+                 Carry c, int B, int D, int lane) {
   constexpr int Q = 32 * ROWS;
   __shared__ float ys[kWarpsPerBlock][32];
   __shared__ float rss[kWarpsPerBlock][32];
@@ -68,20 +92,33 @@ wavefront_kernel(const float* __restrict__ queries,    // (B, Q)
 
   float x[ROWS], a1[ROWS], a2[ROWS], yw[ROWS];
   bool rw[ROWS];
+  const size_t row0 = (size_t)b * Q + t * ROWS;  // this lane's first (b, row)
+  float prev_up = kBig;  // A_{d-2} of the row above this lane's first
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    x[r] = queries[(size_t)b * Q + t * ROWS + r];
-    a1[r] = kBig;
-    a2[r] = kBig;
-    yw[r] = kPad;
-    rw[r] = false;
+    x[r] = queries[row0 + r];
+    if (CARRY) {
+      // a2 holds A_{d-2} unrolled: row t*ROWS+r of A_{d-2} is element
+      // t*ROWS+r+1 of the rolled state. Its last row belongs to the next
+      // lane's first element and is never read as a diagonal neighbour
+      // (only a2[r-1] is), so it is left BIG.
+      a1[r] = c.a1_in[row0 + r];
+      a2[r] = r + 1 < ROWS ? c.a2_in[row0 + r + 1] : kBig;
+      yw[r] = c.ywin_in[t * ROWS + r];
+      rw[r] = c.rswin_in[t * ROWS + r] > 0.5f;
+    } else {
+      a1[r] = kBig;
+      a2[r] = kBig;
+      yw[r] = kPad;
+      rw[r] = false;
+    }
   }
+  if (CARRY) prev_up = c.a2_in[row0];  // roll(A_{d-2})[t*ROWS] = A_{d-2}[t*ROWS-1]
   const int s = start_lanes ? start_lanes[b] : 0;
   const int fs_r = s - t * ROWS;  // free-start row in this lane, if in [0, ROWS)
   const int emit_t = lane / ROWS;
   const int emit_r = lane - emit_t * ROWS;
   const int src = (t + 31) & 31;  // lane t-1, and lane 31 for lane 0
-  float prev_up = kBig;           // A_{d-2} of the row above this lane's first
   float em = 0.0f;                // emitted value of diagonal d0 + t
 
   // reference tile prefetch: lane t holds y[d0 + 32 + t] for the next tile
@@ -140,40 +177,86 @@ wavefront_kernel(const float* __restrict__ queries,    // (B, Q)
     }
     if (t < steps) orow[d0 + t] = em;
   }
+
+  if (CARRY) {
+    // the state after the last diagonal, rolled back into the carry form
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      c.a1_out[row0 + r] = a1[r];
+      c.a2_out[row0 + r] = r > 0 ? a2[r - 1] : prev_up;
+    }
+    if (b == 0) {  // every warp holds the same window
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        c.ywin_out[t * ROWS + r] = yw[r];
+        c.rswin_out[t * ROWS + r] = rw[r] ? 1.0f : 0.0f;
+      }
+    }
+  }
 }
 
 template <int ROWS>
 void launch_rows(const float* q, const float* yp, const float* rp,
-                 const int* sl, float* out, int B, int D, int lane, int std_,
-                 cudaStream_t stream) {
+                 const int* sl, float* out, const Carry& c, int B, int D,
+                 int lane, int std_, cudaStream_t stream) {
   const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(32 * kWarpsPerBlock);
-  if (std_) {
-    wavefront_kernel<ROWS, true><<<grid, block, 0, stream>>>(q, yp, rp, sl, out, B, D, lane);
+  const bool carry = c.a1_in != nullptr;
+  if (carry && std_) {
+    wavefront_kernel<ROWS, true, true><<<grid, block, 0, stream>>>(q, yp, rp, sl, out, c, B, D, lane);
+  } else if (carry) {
+    wavefront_kernel<ROWS, false, true><<<grid, block, 0, stream>>>(q, yp, rp, sl, out, c, B, D, lane);
+  } else if (std_) {
+    wavefront_kernel<ROWS, true, false><<<grid, block, 0, stream>>>(q, yp, rp, sl, out, c, B, D, lane);
   } else {
-    wavefront_kernel<ROWS, false><<<grid, block, 0, stream>>>(q, yp, rp, sl, out, B, D, lane);
+    wavefront_kernel<ROWS, false, false><<<grid, block, 0, stream>>>(q, yp, rp, sl, out, c, B, D, lane);
   }
+}
+
+int launch(const float* queries, const float* ypad, const float* rspad,
+           const int* start_lanes, float* out, const Carry& c, int B, int Q,
+           int D, int lane, int std_, cudaStream_t s) {
+  if (lane < 0 || lane >= Q) return (int)cudaErrorInvalidValue;
+  switch (Q) {
+    case 32: launch_rows<1>(queries, ypad, rspad, start_lanes, out, c, B, D, lane, std_, s); break;
+    case 64: launch_rows<2>(queries, ypad, rspad, start_lanes, out, c, B, D, lane, std_, s); break;
+    case 128: launch_rows<4>(queries, ypad, rspad, start_lanes, out, c, B, D, lane, std_, s); break;
+    case 256: launch_rows<8>(queries, ypad, rspad, start_lanes, out, c, B, D, lane, std_, s); break;
+    case 384: launch_rows<12>(queries, ypad, rspad, start_lanes, out, c, B, D, lane, std_, s); break;
+    case 512: launch_rows<16>(queries, ypad, rspad, start_lanes, out, c, B, D, lane, std_, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry, bound with ctypes. Launches on `stream`, allocates nothing, and
-// returns cudaGetLastError() (0 on success).
+// C entries, bound with ctypes. Each launches on `stream`, allocates
+// nothing, and returns cudaGetLastError() (0 on success).
 extern "C" int sf_wavefront(const float* queries, const float* ypad,
                             const float* rspad, const int* start_lanes,
                             float* out, int B, int Q, int D, int lane, int std_,
                             void* stream) {
   if (B <= 0 || D <= 0) return 0;
-  if (lane < 0 || lane >= Q) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (Q) {
-    case 32: launch_rows<1>(queries, ypad, rspad, start_lanes, out, B, D, lane, std_, s); break;
-    case 64: launch_rows<2>(queries, ypad, rspad, start_lanes, out, B, D, lane, std_, s); break;
-    case 128: launch_rows<4>(queries, ypad, rspad, start_lanes, out, B, D, lane, std_, s); break;
-    case 256: launch_rows<8>(queries, ypad, rspad, start_lanes, out, B, D, lane, std_, s); break;
-    case 384: launch_rows<12>(queries, ypad, rspad, start_lanes, out, B, D, lane, std_, s); break;
-    case 512: launch_rows<16>(queries, ypad, rspad, start_lanes, out, B, D, lane, std_, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const Carry none = {};
+  return launch(queries, ypad, rspad, start_lanes, out, none, B, Q, D, lane,
+                std_, (cudaStream_t)stream);
+}
+
+// The carry mode: one reference segment of D >= 1 diagonals, seeded from
+// the incoming state and writing the outgoing state. The outputs must not
+// alias the inputs (every warp reads the incoming window).
+extern "C" int sf_wavefront_carry(const float* queries, const float* ypad,
+                                  const float* rspad, const int* start_lanes,
+                                  const float* a1_in, const float* a2_in,
+                                  const float* ywin_in, const float* rswin_in,
+                                  float* out, float* a1_out, float* a2_out,
+                                  float* ywin_out, float* rswin_out, int B,
+                                  int Q, int D, int lane, int std_,
+                                  void* stream) {
+  if (B <= 0) return 0;
+  if (D <= 0 || !a1_in || !a2_in || !ywin_in || !rswin_in) return (int)cudaErrorInvalidValue;
+  const Carry c = {a1_in, a2_in, ywin_in, rswin_in, a1_out, a2_out, ywin_out, rswin_out};
+  return launch(queries, ypad, rspad, start_lanes, out, c, B, Q, D, lane, std_,
+                (cudaStream_t)stream);
 }

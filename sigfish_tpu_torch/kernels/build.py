@@ -33,7 +33,7 @@ NVCC_FLAGS = [
 ]
 
 # one source csrc/<name>.cu per kernel
-KERNELS = ("wavefront",)
+KERNELS = ("wavefront", "alu_peak")
 
 
 def nvcc_path() -> str:
@@ -52,16 +52,21 @@ def library_path(name: str) -> str:
 
 def build(name: str) -> tuple[str, str]:
     """Compile csrc/<name>.cu unless its library exists; returns (path,
-    the compiler's report: ptxas' registers, shared memory and spills)."""
+    the compiler's report: ptxas' registers, shared memory and spills),
+    the report kept beside the library for later loads."""
     so = library_path(name)
+    report = f"{so}.log"
     if os.path.exists(so):
-        return so, ""
+        with open(report) as f:
+            return so, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{r.stdout}\n{r.stderr}")
+    with open(report, "w") as f:
+        f.write(r.stdout + r.stderr)
     os.replace(tmp, so)
     return so, r.stdout + r.stderr
 

@@ -90,6 +90,11 @@ def make_query_batch(
     return qb, qlens, onehot
 
 
+def wavefront_diags(R: int, Q: int, td: int = WF_ALIGN) -> int:
+    """D, the diagonal count of prepare_wavefront_inputs' buffers."""
+    return ((R + Q + td - 1) // td) * td
+
+
 def prepare_wavefront_inputs(
     ref: np.ndarray, reset: np.ndarray, Q: int, td: int = WF_ALIGN
 ) -> tuple[np.ndarray, np.ndarray, int]:
@@ -98,7 +103,7 @@ def prepare_wavefront_inputs(
     Returns (ypad (1, D), rspad (1, D), D) with D = ceil((R+Q)/td)*td.
     """
     R = ref.shape[0]
-    D = ((R + Q + td - 1) // td) * td
+    D = wavefront_diags(R, Q, td)
     ypad = np.full((1, D), PAD, dtype=np.float32)
     ypad[0, :R] = ref
     rspad = np.zeros((1, D), dtype=np.float32)

@@ -37,6 +37,12 @@ from .layout import BIG, PAD
 # rows per thread the kernel is instantiated for (Q = 32 * rows)
 _KERNEL_ROWS = (1, 2, 4, 8, 12, 16)
 
+# f32 operations the recurrence needs per DP cell, the count every bound
+# of the sweep is computed from: sub and abs (local), min(left, diag),
+# the reset select, min with up, add, and the free-start select. Moving
+# values between lanes and picking the emitted lane are not counted.
+OPS_PER_CELL = 7
+
 
 def wavefront_plain(
     queries: torch.Tensor,      # (B, Q) f32
@@ -45,25 +51,43 @@ def wavefront_plain(
     lane: int,
     start_lanes: torch.Tensor | None = None,  # (B,) i32
     std: bool = False,
-) -> torch.Tensor:
+    a1: torch.Tensor | None = None,     # (B, Q) incoming A_{d-1}
+    a2: torch.Tensor | None = None,     # (B, Q) incoming roll(A_{d-2})
+    ywin: torch.Tensor | None = None,   # (1, Q) incoming reference window
+    rswin: torch.Tensor | None = None,  # (1, Q) incoming reset window
+):
     """The plain version: a loop over diagonals on (B, Q) tensors, in
-    the kernel's op order. Runs on whatever device its inputs lie on."""
+    the kernel's op order. Runs on whatever device its inputs lie on.
+
+    Without a carry it starts fresh (BIG diagonals, a PAD window) and
+    returns the scores (B, D). With the carry (a1, a2, ywin, rswin) --
+    all four or none, in sdtw_wavefront_carry's form -- it starts from
+    that state and returns (scores, a1, a2, ywin, rswin), the state after
+    the segment's last diagonal."""
     B, Q = queries.shape
     D = ypad.shape[1]
     dev = queries.device
     f32 = torch.float32
+    carry = a1 is not None
+    if carry != (a2 is not None) or carry != (ywin is not None) or carry != (rswin is not None):
+        raise ValueError("wavefront_plain: pass all four of a1, a2, ywin, rswin or none")
+    if not carry:
+        a1 = torch.full((B, Q), BIG, dtype=f32, device=dev)
+        a2 = torch.full((B, Q), BIG, dtype=f32, device=dev)
+        ywin = torch.full((1, Q), PAD, dtype=f32, device=dev)
+        rswin = torch.zeros((1, Q), dtype=f32, device=dev)
     lanes = torch.arange(Q, device=dev)
     if start_lanes is None:
         start_lanes = torch.zeros(B, dtype=torch.int32, device=dev)
     fs = lanes[None, :] == start_lanes.to(dev).long()[:, None]   # (B, Q)
-    # reference windows as views: ywin_d[i] = y[d-i] (PAD, rs 0 for d < i)
-    # is the slice [D-1-d, D-1-d+Q) of the flipped, front-padded track
-    yf = torch.cat([torch.full((Q,), PAD, dtype=f32, device=dev), ypad[0]]).flip(0)
-    rf = torch.cat([torch.zeros(Q, dtype=f32, device=dev), rspad[0]]).flip(0) > 0.5
+    # reference windows as views: ywin_d[i] = y[d-i] is the slice
+    # [D-1-d, D-1-d+Q) of the flipped track behind its incoming window
+    # (for d < i, lane i reads ywin[i-d-1]: PAD and rs 0 when fresh)
+    yf = torch.cat([ywin[0].flip(0), ypad[0]]).flip(0)
+    rf = torch.cat([rswin[0].flip(0), rspad[0]]).flip(0) > 0.5
     big = torch.tensor(BIG, dtype=f32, device=dev)
     zero = torch.tensor(0.0, dtype=f32, device=dev)
-    a1 = torch.full((B, Q), BIG, dtype=f32, device=dev)   # A_{d-1}
-    b2 = torch.full((B, Q), BIG, dtype=f32, device=dev)   # A_{d-2} shifted by one lane
+    b2 = a2                                               # A_{d-2} shifted by one lane
     out = torch.empty((B, D), dtype=f32, device=dev)
     for d in range(D):
         lo = D - 1 - d
@@ -79,7 +103,9 @@ def wavefront_plain(
             a_new = torch.where(fs, local, a_new)
         out[:, d] = a_new[:, lane]
         a1, b2 = a_new, up
-    return out
+    if not carry:
+        return out
+    return out, a1, b2, yf[None, :Q].clone(), rf[None, :Q].to(f32)
 
 
 def _check(queries, ypad, rspad, lane, start_lanes):
@@ -147,6 +173,76 @@ def sdtw_wavefront(
 
 sdtw_wavefront.launches = 0
 
+
+def sdtw_wavefront_carry(
+    queries: torch.Tensor,      # (B, Q) f32
+    ypad: torch.Tensor,         # (1, D) f32: one reference segment
+    rspad: torch.Tensor,        # (1, D) f32
+    a1: torch.Tensor,           # (B, Q) incoming A_{d-1} (BIG when fresh)
+    a2: torch.Tensor,           # (B, Q) incoming roll(A_{d-2}) (BIG when fresh)
+    ywin: torch.Tensor,         # (1, Q) incoming window, ywin[i] = y[d-1-i] (PAD when fresh)
+    rswin: torch.Tensor,        # (1, Q) incoming reset window, f32 0/1 (0 when fresh)
+    lane: int,
+    start_lanes: torch.Tensor | None = None,
+    std: bool = False,
+):
+    """sdtw_wavefront over one reference segment with explicit
+    cross-segment state; returns (scores (B, D), a1, a2, ywin, rswin).
+
+    Segments run back to back through this function, each fed the
+    previous call's state, give bit for bit the scores of one
+    sdtw_wavefront over their concatenation. The state is the JAX
+    package's (sdtw_pallas.sdtw_wavefront_carry): a2 is the diagonal
+    d-2 rolled by one lane, so the two packages' states compare value
+    for value. start_lanes must be the same on every segment of a chain.
+    CPU tensors run wavefront_plain; CUDA tensors launch the kernel's
+    carry mode (counted in sdtw_wavefront_carry.launches) or raise."""
+    _check(queries, ypad, rspad, lane, start_lanes)
+    B, Q = queries.shape
+    for name, t, shape in (("a1", a1, (B, Q)), ("a2", a2, (B, Q)),
+                           ("ywin", ywin, (1, Q)), ("rswin", rswin, (1, Q))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(
+                f"sdtw_wavefront_carry: {name} must be float32 {shape}; got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+        if t.device != queries.device:
+            raise ValueError(f"sdtw_wavefront_carry: {name} on {t.device}, queries on {queries.device}")
+    if queries.device.type == "cpu":
+        return wavefront_plain(queries, ypad, rspad, lane, start_lanes, std, a1, a2, ywin, rswin)
+    if queries.device.type != "cuda":
+        raise ValueError(f"sdtw_wavefront_carry: unsupported device {queries.device}")
+    D = ypad.shape[1]
+    if Q % 32 or Q // 32 not in _KERNEL_ROWS:
+        raise ValueError(
+            f"sdtw_wavefront_carry: the kernel takes Q = 32 * {_KERNEL_ROWS}; got Q={Q}"
+        )
+    if D < 1:
+        raise ValueError("sdtw_wavefront_carry: empty segment")
+    lib = _library()
+    q = queries.contiguous()
+    state_in = [t.contiguous() for t in (a1, a2, ywin, rswin)]
+    sl = None if start_lanes is None else start_lanes.to(torch.int32).contiguous()
+    out = torch.empty((B, D), dtype=torch.float32, device=q.device)
+    # fresh outputs: every warp reads the incoming window, so it cannot
+    # be overwritten in place
+    state_out = [torch.empty_like(t) for t in state_in]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.sf_wavefront_carry(
+        q.data_ptr(), ypad.contiguous().data_ptr(), rspad.contiguous().data_ptr(),
+        None if sl is None else sl.data_ptr(),
+        *(t.data_ptr() for t in state_in), out.data_ptr(),
+        *(t.data_ptr() for t in state_out),
+        B, Q, D, lane, int(std), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"sdtw_wavefront_carry: CUDA launch failed (cudaError {err})")
+    sdtw_wavefront_carry.launches += 1
+    return (out, *state_out)
+
+
+sdtw_wavefront_carry.launches = 0
+
 _lib: ctypes.CDLL | None = None
 
 
@@ -162,5 +258,7 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.sf_wavefront.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.sf_wavefront.restype = ctypes.c_int
+        lib.sf_wavefront_carry.argtypes = [p] * 13 + [i, i, i, i, i, p]
+        lib.sf_wavefront_carry.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -12,7 +12,12 @@ with its names and order kept:
                        ops/sdtw_wavefront.py) over every (contig, strand)
                        track for the whole batch, then the window top-5
                        reduction (ops/candidates_dev.py) on the scores'
-                       device; only (B, 10) packed values come back
+                       device; only (B, 10) packed values come back.
+                       Past CHUNK_AUTO_COLS reference columns (or with
+                       --ref-chunk N > 0) the reference streams through
+                       the kernel's carry mode in segments instead
+                       (ops/chunked_ref.py), and clipped reads go through
+                       the one-shot kernel in small row groups
   backtrack/
   output        host   winner path recompute + PAF lines in batch order
 
@@ -21,14 +26,16 @@ through the kernel, CPU tensors (device="cpu") through its plain
 PyTorch version. There is no engine choice and no silent fallback:
 Core raises when CUDA is asked for and absent.
 
-This slice serves R9 DNA subsequence DTW with PAF output on one device.
-Every other option raises NotImplementedError naming the ROADMAP.md
-item (queue 1) that brings it.
+This port serves R9 DNA subsequence DTW with PAF output on one device,
+over references of any length (one-shot or chunked). Every other option
+raises NotImplementedError naming the ROADMAP.md item (queue 1) that
+brings it.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as _fut
+import contextlib
 import os
 import threading
 import time
@@ -42,8 +49,13 @@ from ..io.blow5 import Slow5File, Slow5Record
 from ..io.fasta import read_fasta
 from ..models.genref import RefSynth, gen_ref
 from ..models.pore_model import MODEL_ID_DNA_R9, load_builtin_model, read_model_tsv
-from ..ops.candidates import compute_mapq
+from ..ops.candidates import compute_mapq, window_argmin
 from ..ops.candidates_dev import topk_candidates, window_top5
+from ..ops.chunked_ref import (
+    CHUNK_AUTO_COLS,
+    prepare_chunked_inputs,
+    sdtw_wavefront_chunked_top5,
+)
 from ..ops.events import DNA_PARAMS, get_events, get_events_prefix
 from ..ops.layout import (
     build_column_maps,
@@ -52,16 +64,23 @@ from ..ops.layout import (
     prepare_wavefront_inputs,
     shift_queries_for_clip,
     unpack_top5,
+    wavefront_diags,
 )
-from ..ops.sdtw_ref import subsequence_cost_seeded, subsequence_path
+from ..ops.sdtw_ref import subsequence_cost, subsequence_cost_seeded, subsequence_path
 from ..ops.sdtw_wavefront import sdtw_wavefront
 from ..output import paf_line
 from ..utils import log_info, log_warning
 
-# reference columns past which the JAX package streams the reference in
-# segments (its ops/chunked_ref.CHUNK_AUTO_COLS); the port has no
-# chunked path yet
-CHUNK_AUTO_COLS = 1 << 20
+# chunked-reference mode: byte budget for serving a batch's CLIPPED reads
+# through the one-shot kernel, as the JAX package sizes it. A group holds
+# three (rows, D)-sized buffers at peak (the scores, the clip pass's row
+# take and its column slice), so rows = budget // (12 * D), rounded down
+# to a power of two: 16-row groups at 9.3M columns. The bound is per
+# batch: run_dtw double-buffers, so one batch's lazily submitted groups
+# can overlap the next batch's group 0. A budget below one row sends the
+# clipped reads to the exact host per-read DP (Core._clipped_top5) on
+# device="cpu", and raises on the card, which does no work on the host.
+_CLIP_ONESHOT_BYTES = 2 << 30
 
 # what brings each option that this slice does not serve (ROADMAP.md,
 # queue 1)
@@ -74,9 +93,9 @@ _LATER = {
     "from_end": "item 7 (--from-end)",
     "sam": "item 7 (--sam)",
     "pore": "item 7 (R10 and RNA004 chemistries)",
-    "ref_chunk": "item 9 (chunked reference)",
     "host_stages": "item 10 (--host-stages device)",
     "mesh": "item 11 (multi-GPU mesh)",
+    "clip_rows": "'Next bring_up' (the sweep redesign that serves clipped reads on the card)",
 }
 
 
@@ -110,8 +129,9 @@ class Options:
     ckpt: int = 512
     mesh: str | None = None
     host_stages: str = "host"
-    # 0 = auto (one pass unless the reference needs the chunked path),
-    # -1 = never chunk, > 0 = force chunks (not served yet)
+    # reference-axis chunking: 0 = auto (chunk once R + Q passes
+    # CHUNK_AUTO_COLS columns), -1 = never chunk, N > 0 = always chunk,
+    # in segments of about N diagonals
     ref_chunk: int = 0
     device: str = "cuda"
 
@@ -129,8 +149,6 @@ class Options:
             raise _later("--mesh", "mesh")
         if self.host_stages != "host":
             raise _later(f"--host-stages {self.host_stages}", "host_stages")
-        if self.ref_chunk > 0:
-            raise _later("--ref-chunk > 0", "ref_chunk")
 
 
 @dataclass
@@ -261,11 +279,6 @@ class Core:
         self.track_sizes = state.track_sizes
         self.track_meta = state.track_meta
         self.pad_q = max(128, ((opt.query_size + 127) // 128) * 128)
-        if opt.ref_chunk == 0 and self.ref_cat.shape[0] + self.pad_q > CHUNK_AUTO_COLS:
-            raise _later(
-                f"a reference of {self.ref_cat.shape[0]} columns (past "
-                f"{CHUNK_AUTO_COLS}, the chunked path's threshold)", "ref_chunk"
-            )
 
         # static column maps for the candidate reduction, on the device
         u_map, valid_map = build_column_maps(
@@ -273,8 +286,20 @@ class Core:
         )
         self.u_dev = torch.from_numpy(u_map).to(self.device)
         self.valid_dev = torch.from_numpy(valid_map).to(self.device)
+        self.valid_host = valid_map
         # wavefront reference buffers per Q, uploaded once per Core
         self._wf_cache: dict[int, tuple[torch.Tensor, torch.Tensor, int]] = {}
+        # chunked-reference segments per (Q, ref_chunk), uploaded once
+        self._wf_chunk_cache: dict[tuple[int, int], tuple] = {}
+        # how many times each device route ran: "oneshot" (sub-)batches,
+        # "chunked" folds, "clip_groups" (the chunked route's one-shot
+        # clip groups) and "clip_host" (clipped reads served on the host).
+        # Clip groups are also submitted from run_dtw's drain thread.
+        self.routes = {"oneshot": 0, "chunked": 0, "clip_groups": 0, "clip_host": 0}
+        self._routes_lock = threading.Lock()
+        # --profile-cpu on the card: CUDA event pairs around each route's
+        # device work, read by span_seconds once the run has drained
+        self.spans = {"oneshot": [], "chunked": [], "clip_groups": []}
 
         # counters (ref core_t)
         self.total_reads = 0
@@ -306,20 +331,75 @@ class Core:
             )
         return self._wf_cache[Q]
 
+    def _count_route(self, route: str, n: int = 1) -> None:
+        with self._routes_lock:
+            self.routes[route] += n
+
+    @contextlib.contextmanager
+    def _span(self, route: str):
+        """Record CUDA events around the device work queued inside the
+        block, into spans[route], when profiling on the card."""
+        if not (self.opt.profile and self.device.type == "cuda"):
+            yield
+            return
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        yield
+        e1.record()
+        with self._routes_lock:
+            self.spans[route].append((e0, e1))
+
+    def span_seconds(self, route: str) -> float:
+        """Device seconds inside spans[route] (a --profile-cpu run on the
+        card, one batch in flight at a time, so no two spans overlap)."""
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans[route]) / 1e3
+
     def sdtw_candidates_collect(self, handle: dict) -> tuple[np.ndarray, np.ndarray]:
-        """Wait for a submitted batch's results and unpack them."""
+        """Wait for a submitted batch's results and unpack them; run the
+        chunked route's clip groups (one at a time) or host clip DPs."""
         if "parts" in handle:
             outs = [self.sdtw_candidates_collect(h) for h in handle["parts"]]
             return (
                 np.concatenate([o[0] for o in outs]),
                 np.concatenate([o[1] for o in outs]),
             )
-        ts, tp = unpack_top5(_host_array(handle["packed"]))
+        if handle["packed"] is None:
+            # clip-only submission (every live row clipped): no main pass
+            # ran; the clip entries below fill every real row
+            B = handle["B"]
+            ts = np.full((B, 5), np.float32(3.0e38), np.float32)
+            tp = np.full((B, 5), -1, np.int32)
+        else:
+            ts, tp = unpack_top5(_host_array(handle["packed"]))
         if "clip_packed" in handle:
             cs, cp = unpack_top5(_host_array(handle["clip_packed"]))
             rows = handle["clip_rows"]
             ts[rows] = cs
             tp[rows] = cp
+        elif "clip_dev" in handle:
+            # chunked route: clipped reads ride the one-shot kernel in
+            # small groups, submitted one at a time -- group i+1 only
+            # after group i's results are read and its buffers released,
+            # which bounds the device memory of clip groups per batch
+            for ent in handle["clip_dev"]:
+                grp, sub, qb_c, qlens_c = ent
+                if sub is None:
+                    sub = self.sdtw_candidates_submit(qb_c, qlens_c, force_oneshot=True)
+                cs, cp = self.sdtw_candidates_collect(sub)
+                ent[1] = ent[2] = ent[3] = None  # release the group's buffers
+                del sub
+                ts[grp] = cs[: grp.size]
+                tp[grp] = cp[: grp.size]
+        elif "clip_host" in handle:
+            # chunked route, when not even one one-shot row fits the clip
+            # budget: the exact host per-read DP, possibly as futures
+            for i, r in enumerate(handle["clip_rows"]):
+                res = handle["clip_host"][i]
+                s5, p5 = res.result() if hasattr(res, "result") else res
+                ts[r] = s5
+                tp[r] = p5
         return ts, tp
 
     def _clip_pass(
@@ -343,23 +423,36 @@ class Core:
         handle["clip_rows"] = clip_rows
         handle["clip_packed"] = _start_host_copy(cpacked)
 
-    def sdtw_candidates_submit(self, qb: np.ndarray, qlens: np.ndarray) -> dict:
+    def sdtw_candidates_submit(
+        self, qb: np.ndarray, qlens: np.ndarray, force_oneshot: bool = False
+    ) -> dict:
         """Launch the device work for one query batch without waiting for
         it; returns a handle for sdtw_candidates_collect, so the caller
         can overlap the next batch's host stages with this batch's
-        device time."""
+        device time.
+
+        Routing (that of the JAX package): ref_chunk > 0 always takes
+        the chunked route, 0 takes it once R + Q passes CHUNK_AUTO_COLS,
+        -1 never does. force_oneshot bypasses it: the chunked route
+        serves its clip groups through the one-shot kernel this way."""
         B, Q = qb.shape
         if B > self.DEVICE_CHUNK:
             C = self.DEVICE_CHUNK
             parts = [
-                self.sdtw_candidates_submit(qb[o : o + C], qlens[o : o + C])
+                self.sdtw_candidates_submit(
+                    qb[o : o + C], qlens[o : o + C], force_oneshot=force_oneshot
+                )
                 for o in range(0, B, C)
             ]
             return dict(parts=parts)
         R = self.ref_cat.shape[0]
         W = self.opt.query_size
-        ypad, rspad, _ = self._wavefront_inputs(Q)
         clip_rows = np.where((qlens > 0) & (qlens != W))[0]
+        if self.opt.ref_chunk >= 0 and not force_oneshot:
+            if self.opt.ref_chunk > 0 or R + Q > CHUNK_AUTO_COLS:
+                return self._chunked_candidates_submit(qb, qlens, clip_rows)
+        self._count_route("oneshot")
+        ypad, rspad, _ = self._wavefront_inputs(Q)
         if clip_rows.size:
             # clipped reads ride the kernel's uniform emitted lane by
             # shifting their query up to end at lane W-1 (the free-start
@@ -368,16 +461,148 @@ class Core:
             fs_dev = torch.from_numpy(fs_lanes).to(self.device)
         else:
             qb_k, fs_dev = qb, None
-        scores = sdtw_wavefront(
-            torch.from_numpy(qb_k).to(self.device), ypad, rspad,
-            lane=W - 1, start_lanes=fs_dev,
-        )
-        packed = window_top5(
-            scores, self.valid_dev, R, W, k=5, reindex=True, pack=True
-        )
-        handle = dict(packed=_start_host_copy(packed))
-        self._clip_pass(handle, scores, qlens, R, W)
+        with self._span("clip_groups" if force_oneshot else "oneshot"):
+            scores = sdtw_wavefront(
+                torch.from_numpy(qb_k).to(self.device), ypad, rspad,
+                lane=W - 1, start_lanes=fs_dev,
+            )
+            packed = window_top5(
+                scores, self.valid_dev, R, W, k=5, reindex=True, pack=True
+            )
+            handle = dict(packed=_start_host_copy(packed))
+            self._clip_pass(handle, scores, qlens, R, W)
         return handle
+
+    def _chunked_candidates_submit(
+        self, qb: np.ndarray, qlens: np.ndarray, clip_rows: np.ndarray
+    ) -> dict:
+        """The chunked-reference route (ops/chunked_ref.py): the carry
+        kernel streams the reference in segments and folds each into a
+        per-window accumulator, so the (B, D) score buffer never exists.
+        Bit-identical to the one-shot kernel + window_top5.
+
+        Clipped reads (qlen != W) use per-read window grids that do not
+        fold across segments. They go through the one-shot kernel and
+        the device clip pass in groups of rows sized to
+        _CLIP_ONESHOT_BYTES: a (rows, D) buffer is affordable because
+        clipped reads are few. Only group 0 is submitted here; collect
+        submits the rest one at a time. When not even one row fits the
+        budget, the exact host per-read DP (_clipped_top5) serves them
+        on the thread pool on device="cpu"; on the card that raises, since
+        the card's run does no work on the host."""
+        W = self.opt.query_size
+        B, Q = qb.shape
+        clip_host = None
+        clip_dev = None
+        if clip_rows.size:
+            D_one = wavefront_diags(self.ref_cat.shape[0], Q)  # the one-shot D
+            max_rows = int(_CLIP_ONESHOT_BYTES // (3 * 4 * D_one))
+            pw = 1
+            while pw * 2 <= max_rows:
+                pw *= 2
+            if max_rows >= 1:
+                clip_dev = []
+                for o in range(0, clip_rows.size, pw):
+                    grp = clip_rows[o : o + pw]
+                    bc = 1
+                    while bc < grp.size:
+                        bc *= 2
+                    qb_c = np.zeros((bc, Q), dtype=qb.dtype)
+                    qb_c[: grp.size] = qb[grp]
+                    qlens_c = np.full(bc, W, dtype=qlens.dtype)
+                    qlens_c[: grp.size] = qlens[grp]
+                    sub = None
+                    if o == 0:
+                        sub = self.sdtw_candidates_submit(qb_c, qlens_c, force_oneshot=True)
+                        qb_c = qlens_c = None
+                    clip_dev.append([grp, sub, qb_c, qlens_c])
+                self._count_route("clip_groups", len(clip_dev))
+            elif self.device.type != "cpu":
+                raise _later(
+                    f"a clipped read against a reference whose one-shot row of "
+                    f"{D_one} diagonals passes the clip budget "
+                    f"({_CLIP_ONESHOT_BYTES} bytes)", "clip_rows",
+                )
+            else:
+                queries = [qb[r, : int(qlens[r])].copy() for r in clip_rows]
+                if self._pool is not None:
+                    clip_host = [self._pool.submit(self._clipped_top5, q) for q in queries]
+                else:
+                    clip_host = [self._clipped_top5(q) for q in queries]
+                self._count_route("clip_host", len(queries))
+        if clip_rows.size and clip_rows.size == int(np.count_nonzero(qlens > 0)):
+            # every live row is clipped: the main fold's results would all
+            # be overwritten at collect, so it is skipped
+            packed = None
+        else:
+            self._count_route("chunked")
+            key = (Q, self.opt.ref_chunk)
+            if key not in self._wf_chunk_cache:
+                target = self.opt.ref_chunk if self.opt.ref_chunk > 0 else 32768
+                yps, rps, vs, _, nwin_tot = prepare_chunked_inputs(
+                    self.ref_cat, self.reset, self.valid_host, Q, W, target=target
+                )
+                self._wf_chunk_cache[key] = (
+                    torch.from_numpy(yps).to(self.device),
+                    torch.from_numpy(rps).to(self.device),
+                    torch.from_numpy(vs).to(self.device),
+                    nwin_tot,
+                )
+            yps, rps, vs, nwin_tot = self._wf_chunk_cache[key]
+            with self._span("chunked"):
+                packed = _start_host_copy(sdtw_wavefront_chunked_top5(
+                    torch.from_numpy(qb).to(self.device), yps, rps, vs,
+                    lane=W - 1, W=W, nwin_tot=nwin_tot,
+                ))
+        handle = dict(packed=packed, B=B)
+        if clip_rows.size:
+            handle["clip_rows"] = clip_rows
+            if clip_dev is not None:
+                handle["clip_dev"] = clip_dev
+            else:
+                handle["clip_host"] = clip_host
+        return handle
+
+    def _clipped_top5(self, query: np.ndarray):
+        """Exact last row over every track for one clipped read (native
+        two-row DP; Python-oracle fallback), then the host window scan."""
+        from .. import native
+
+        R = self.ref_cat.shape[0]
+        lr = np.full(R, np.float32(3.0e38))
+        for lo, size in zip(self.track_offsets[:-1], self.track_sizes):
+            lo = int(lo)
+            if not size:
+                continue
+            track = self.ref_cat[lo : lo + size]
+            row = native.subsequence_lastrow(query, track)
+            if row is None:
+                row = np.asarray(subsequence_cost(query, track))[-1]
+            lr[lo : lo + size] = row
+        return self._host_top5(lr, query.size)
+
+    def _host_top5(self, lr_row: np.ndarray, qlen: int):
+        """Window scan + update_aln top-5 for one read (exact reference
+        semantics, any window width)."""
+        cand_s: list[float] = []
+        cand_p: list[int] = []
+        for t in range(len(self.track_sizes)):
+            lo = int(self.track_offsets[t])
+            size = self.track_sizes[t]
+            mins, args = window_argmin(lr_row[lo : lo + size], qlen)
+            cand_s.extend(mins.tolist())
+            cand_p.extend((args + lo).tolist())
+        s = np.asarray(cand_s, dtype=np.float32)
+        p = np.asarray(cand_p, dtype=np.int64)
+        out_s = np.full(5, np.float32(3.0e38))
+        out_p = np.full(5, -1, dtype=np.int64)
+        for k in range(min(5, s.size)):
+            rev = s[::-1]
+            best = s.size - 1 - int(np.argmin(rev))  # later wins ties
+            out_s[k] = s[best]
+            out_p[k] = p[best]
+            s[best] = np.float32(np.inf)
+        return out_s, out_p
 
     def close(self) -> None:
         self.sf.close()

@@ -1,0 +1,359 @@
+"""The port's chunked-reference path against the JAX package's, bit for
+bit: the carry mode of the wavefront op (scores and all four state
+tensors against sdtw_wavefront_carry in interpret mode), the segment
+fold and top-5 (against sdtw_wavefront_chunked_top5), and the pipeline's
+chunked route (PAF against Core(engine="pallas", ref_chunk=...)), through
+the library and the CLI. The tolerance is 0 throughout: the same f32
+operations in the same order, and min is exact.
+
+On the CPU the wrappers run the plain versions; the CUDA carry kernel is
+held to them on the card (tests/test_torch_gpu.py, chip_smoke.py).
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sigfish_tpu.ops.candidates_dev import device_window_top5
+from sigfish_tpu.ops.chunked_ref import (
+    prepare_chunked_inputs as jax_prepare_chunked,
+    sdtw_wavefront_chunked_top5 as jax_chunked_top5,
+)
+from sigfish_tpu.ops.sdtw_pallas import sdtw_wavefront_carry as jax_carry
+from sigfish_tpu_torch.ops import chunked_ref as cr
+from sigfish_tpu_torch.ops import layout
+from sigfish_tpu_torch.ops import sdtw_wavefront as wf
+from sigfish_tpu_torch.ops.candidates_dev import window_top5
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TD = 32  # the JAX kernel's tile in these tests
+
+
+def _bits(a):
+    return np.asarray(a, dtype=np.float32).view(np.int32)
+
+
+def _fresh(B, Q):
+    return (
+        np.full((B, Q), np.float32(layout.BIG), np.float32),
+        np.full((B, Q), np.float32(layout.BIG), np.float32),
+        np.full((1, Q), np.float32(layout.PAD), np.float32),
+        np.zeros((1, Q), np.float32),
+    )
+
+
+def _case(seed, W=32, Q=64, clipped=True):
+    """A multi-track layout with resets and a batch mixing full-length
+    and clipped reads, laid out as the pipeline does; the reference is
+    padded to a multiple of 3*TD so it splits into three segments."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(20, 120, size=int(rng.integers(2, 5)))
+    tracks = [rng.standard_normal(int(s)).astype(np.float32) for s in sizes]
+    ref, reset, _ = layout.pad_tracks(tracks, ckpt=TD, align=W)
+    qlens = [W, 11, W - 5, W, 1, W] if clipped else [W] * 6
+    qlist = [rng.standard_normal(n).astype(np.float32) for n in qlens]
+    qb, qlens, _ = layout.make_query_batch(qlist, pad_q=Q)
+    qb_k, fs = layout.shift_queries_for_clip(qb, qlens, W - 1)
+    ypad, rspad, D = layout.prepare_wavefront_inputs(ref, reset, Q, td=3 * TD)
+    return qb_k, fs, ypad, rspad, W - 1
+
+
+def test_chunk_segment_diags_alignment():
+    for W in (250, 500, 48, 251, 1):
+        Ds = cr.chunk_segment_diags(W)
+        assert Ds % W == 0 and Ds % 32 == 0, (W, Ds)
+    # the JAX package's segment at its default 256-diagonal tile
+    assert cr.chunk_segment_diags(250) == 32_000
+    assert cr.chunk_segment_diags(64, target=256) == 256
+
+
+@pytest.mark.parametrize("clipped,std", [(False, False), (True, False), (True, True)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_carry_state_bitwise_vs_pallas(seed, clipped, std):
+    """Chained over >= 3 segments: the scores and the four outgoing
+    state tensors equal the JAX carry kernel's after every segment."""
+    qb, fs, ypad, rspad, lane = _case(seed, clipped=clipped)
+    B, Q = qb.shape
+    n_seg = ypad.shape[1] // TD
+    assert n_seg >= 3
+    js = tuple(jnp.asarray(a) for a in _fresh(B, Q))
+    ts = tuple(torch.from_numpy(a) for a in _fresh(B, Q))
+    before = wf.sdtw_wavefront_carry.launches
+    for s in range(n_seg):
+        yp, rp = ypad[:, s * TD : (s + 1) * TD], rspad[:, s * TD : (s + 1) * TD]
+        jout = jax_carry(
+            jnp.asarray(qb), jnp.asarray(yp), jnp.asarray(rp), *js, lane=lane,
+            td=TD, unroll=4, interpret=True, start_lanes=jnp.asarray(fs), std=std,
+        )
+        tout = wf.sdtw_wavefront_carry(
+            torch.from_numpy(qb), torch.from_numpy(yp), torch.from_numpy(rp), *ts,
+            lane, start_lanes=torch.from_numpy(fs), std=std,
+        )
+        for name, j, t in zip(("scores", "a1", "a2", "ywin", "rswin"), jout, tout):
+            assert t.dtype == torch.float32 and tuple(t.shape) == tuple(j.shape), name
+            np.testing.assert_array_equal(_bits(t.numpy()), _bits(j), err_msg=f"{name}, segment {s}")
+        js, ts = tuple(jout[1:]), tuple(tout[1:])
+    assert wf.sdtw_wavefront_carry.launches == before  # CPU: no kernel launch
+
+
+@pytest.mark.parametrize("std", [False, True])
+@pytest.mark.parametrize("seg", [TD, 40, 1])
+def test_carry_chain_equals_one_pass(seg, std):
+    """Segments of any length, chained, give one pass's scores bitwise."""
+    qb, fs, ypad, rspad, lane = _case(5)
+    q, y, r, sl = (torch.from_numpy(a) for a in (qb, ypad, rspad, fs))
+    want = wf.wavefront_plain(q, y, r, lane, sl, std)
+    D = y.shape[1]
+    if seg == 1:
+        seg = D // 3 + 1  # three uneven segments
+    state = tuple(torch.from_numpy(a) for a in _fresh(*q.shape))
+    got = []
+    for o in range(0, D, seg):
+        sc, *state = wf.sdtw_wavefront_carry(
+            q, y[:, o : o + seg], r[:, o : o + seg], *state, lane, sl, std,
+        )
+        got.append(sc)
+    np.testing.assert_array_equal(_bits(torch.cat(got, dim=1).numpy()), _bits(want.numpy()))
+
+
+def test_plain_carry_arguments_all_or_none():
+    qb, _, ypad, rspad, lane = _case(2)
+    q, y, r = (torch.from_numpy(a) for a in (qb, ypad, rspad))
+    a1 = torch.from_numpy(_fresh(*qb.shape)[0])
+    with pytest.raises(ValueError, match="all four"):
+        wf.wavefront_plain(q, y, r, lane, a1=a1)
+    with pytest.raises(ValueError, match="ywin"):
+        wf.sdtw_wavefront_carry(q, y, r, a1, a1, a1, a1, lane)
+
+
+def _top5_case(seed, W=48, Q=64):
+    """Tracks and a batch with planted near-ties: rows 1 and 2 repeat
+    row 0, and a repeated reference stretch makes equal costs in several
+    windows, across segment boundaries (the pattern of
+    tests/test_chunked_ref.py)."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(30, 200, size=4)
+    tracks = [rng.standard_normal(int(s)).astype(np.float32) for s in sizes]
+    tracks[1][: 40] = tracks[0][: 40]
+    ref, reset, offsets = layout.pad_tracks(tracks, ckpt=32, align=W)
+    R = ref.shape[0]
+    _, valid = layout.build_column_maps(offsets, R, track_sizes=[t.size for t in tracks])
+    qlist = [rng.standard_normal(W).astype(np.float32) for _ in range(6)]
+    qlist[1] = qlist[0].copy()
+    qlist[2] = tracks[0][: W].copy()
+    qb, qlens, _ = layout.make_query_batch(qlist, pad_q=Q)
+    return ref, reset, valid, qb, qlens, W, Q
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_chunked_top5_bitwise_vs_pallas(seed):
+    """The port's fold and top-5 against the JAX package's, packed
+    buffers bitwise, and against the one-shot plain kernel + window_top5."""
+    ref, reset, valid, qb, qlens, W, Q = _top5_case(seed)
+    R = ref.shape[0]
+    yps, rps, vs, Ds, nwin = cr.prepare_chunked_inputs(ref, reset, valid, Q, W, target=TD)
+    jy, jr, jv, jDs, jnwin = jax_prepare_chunked(ref, reset, valid, Q, W, td=TD, target=TD)
+    assert yps.shape[0] >= 3, "want several segments for the fold"
+    assert (Ds, nwin) == (jDs, jnwin)
+    for a, b in ((yps, jy), (rps, jr), (vs, jv)):
+        assert np.array_equal(a, b)
+    want = np.asarray(jax_chunked_top5(
+        jnp.asarray(qb), jnp.asarray(yps), jnp.asarray(rps), jnp.asarray(vs),
+        lane=W - 1, W=W, nwin_tot=nwin, td=TD, unroll=4, interpret=True,
+    ))
+    before = wf.sdtw_wavefront_carry.launches
+    got = cr.sdtw_wavefront_chunked_top5(
+        torch.from_numpy(qb), torch.from_numpy(yps), torch.from_numpy(rps),
+        torch.from_numpy(vs), W - 1, W, nwin,
+    )
+    assert wf.sdtw_wavefront_carry.launches == before
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    # the one-shot route gives the same bytes
+    ypad, rspad, _ = layout.prepare_wavefront_inputs(ref, reset, Q)
+    scores = wf.sdtw_wavefront(torch.from_numpy(qb), torch.from_numpy(ypad),
+                               torch.from_numpy(rspad), W - 1)
+    one = window_top5(scores, torch.from_numpy(valid), R, W, pack=True)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(one.numpy()))
+    # and so does the JAX package's own one-shot top-5 (ties and all)
+    jone = device_window_top5(
+        jnp.asarray(scores.numpy()), jnp.asarray(qlens.astype(np.int32)),
+        jnp.asarray(valid), R, W=W, k=5, reindex=True, pack=True,
+    )
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(np.asarray(jone)))
+
+
+# ---------------------------------------------------------------- pipeline
+
+W_PIPE = 64
+N_BASES = 3000
+
+
+@pytest.fixture(scope="module")
+def workload(tmp_path_factory):
+    """One 3,000-base contig and a BLOW5 of 8 reads: 6 full-length, 2
+    clipped (fewer events than prefix + query), both strands."""
+    from sigfish_tpu_torch.io.blow5 import Slow5Record, Slow5Writer
+    from sigfish_tpu_torch.models.genref import _seq_bytes, kmer_ranks, reverse_complement
+    from sigfish_tpu_torch.models.pore_model import MODEL_ID_DNA_R9, load_builtin_model
+
+    d = tmp_path_factory.mktemp("torch_chunked")
+    rng = np.random.default_rng(7)
+    model = load_builtin_model(MODEL_ID_DNA_R9)
+    k = model.kmer_size
+    seq = "".join("ACGT"[b] for b in rng.integers(0, 4, N_BASES))
+    rc = reverse_complement(seq)
+    fa = d / "ref.fa"
+    fa.write_text(f">synth1\n{seq}\n")
+
+    def signal_from(src, start, n_events):
+        sub = src[start : start + n_events + k - 1]
+        levels = model.level_mean[kmer_ranks(_seq_bytes(sub), k, warn_non_acgt=False)]
+        pa = np.repeat(levels, rng.integers(9, 15, size=levels.size)).astype(np.float64)
+        pa += rng.normal(0.0, 1.2, pa.size)
+        return np.clip(np.rint(pa * 8192.0 / 1400.0 - 10.0), -32000, 32000).astype(np.int16)
+
+    bl = d / "reads.blow5"
+    with Slow5Writer(str(bl), header_data=None) as w:
+        for i in range(8):
+            n_ev = 45 if i in (3, 6) else 300
+            src = seq if i % 2 else rc
+            sig = signal_from(src, int(rng.integers(0, N_BASES - 600)), n_ev)
+            w.write_record(Slow5Record(
+                read_id=f"r{i}", read_group=0, digitisation=8192.0, offset=10.0,
+                range=1400.0, sampling_rate=4000.0, raw_signal=sig,
+            ))
+    return str(fa), str(bl)
+
+
+def _run_port(fa, bl, ref_chunk, **kw) -> tuple[str, dict]:
+    """The port's PAF, and how often each device route ran."""
+    from sigfish_tpu_torch.runtime.pipeline import Core, Options, run_dtw
+
+    core = Core(fa, bl, Options(query_size=W_PIPE, batch_size=8, num_thread=2,
+                                device="cpu", ref_chunk=ref_chunk, **kw))
+    out = io.StringIO()
+    run_dtw(core, out)
+    core.close()
+    return out.getvalue(), core.routes
+
+
+@pytest.fixture(scope="module")
+def oneshot_paf(workload):
+    paf, routes = _run_port(*workload, ref_chunk=-1)
+    assert routes["chunked"] == 0 and routes["oneshot"] > 0
+    return paf
+
+
+@pytest.mark.parametrize("clip_budget", [None, 0])
+def test_chunked_pipeline_paf_vs_jax(workload, oneshot_paf, clip_budget, monkeypatch):
+    """Forced small segments: the port's PAF equals the JAX package's
+    (pallas engine, same forced chunking) and the port's one-shot PAF.
+    clip_budget None serves clipped reads through one-shot clip groups,
+    0 through the host per-read DP."""
+    from sigfish_tpu.runtime import pipeline as jpl
+    from sigfish_tpu_torch.runtime import pipeline as tpl
+
+    if clip_budget is not None:
+        monkeypatch.setattr(jpl, "_CLIP_ONESHOT_BYTES", clip_budget)
+        monkeypatch.setattr(tpl, "_CLIP_ONESHOT_BYTES", clip_budget)
+    fa, bl = workload
+    Ds = cr.chunk_segment_diags(W_PIPE, target=256)
+    assert 2 * (N_BASES + 1 - 6) + 128 > 2 * Ds, "want >= 2 segments"
+
+    before = wf.sdtw_wavefront_carry.launches
+    got, routes = _run_port(fa, bl, ref_chunk=256)
+    assert wf.sdtw_wavefront_carry.launches == before  # the CPU runs the plain version
+    assert routes["chunked"] > 0
+    if clip_budget is None:
+        assert routes["clip_groups"] > 0 and routes["clip_host"] == 0
+    else:
+        assert routes["clip_host"] > 0 and routes["clip_groups"] == 0
+
+    jcore = jpl.Core(fa, bl, jpl.Options(engine="pallas", num_thread=2, ref_chunk=256,
+                                         query_size=W_PIPE, batch_size=8))
+    out = io.StringIO()
+    jpl.run_dtw(jcore, out)
+    jcore.close()
+    assert got == out.getvalue()
+    assert got == oneshot_paf
+    ids = {ln.split("\t")[0] for ln in got.splitlines()}
+    assert {"r3", "r6"} & ids, "a clipped read is mapped"
+    assert len(ids) >= 6
+
+
+def test_chunked_batch_of_clipped_reads_only(workload):
+    """A batch whose every live row is clipped skips the main fold; its
+    clip groups alone give the one-shot route's candidates."""
+    from sigfish_tpu_torch.runtime.pipeline import Core, Options
+
+    core = Core(*workload, Options(query_size=W_PIPE, device="cpu", ref_chunk=256))
+    rng = np.random.default_rng(11)
+    qlist = [rng.standard_normal(n).astype(np.float32) for n in (20, W_PIPE - 1, 33, 7)]
+    qb, qlens, _ = layout.make_query_batch(qlist, pad_q=core.pad_q)
+    got = core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens))
+    assert core.routes["chunked"] == 0 and core.routes["clip_groups"] == 1
+    want = core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens, force_oneshot=True))
+    core.close()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (got[1][:, 0] >= 0).all()
+
+
+def test_clip_budget_below_one_row_raises_on_the_card(workload, monkeypatch):
+    """On the card, clipped reads that not even one one-shot row can
+    serve raise (naming the ROADMAP item) instead of running the host
+    DP; on device="cpu" the host DP serves them."""
+    import torch
+
+    from sigfish_tpu_torch.runtime import pipeline as tpl
+
+    monkeypatch.setattr(tpl, "_CLIP_ONESHOT_BYTES", 0)
+    core = tpl.Core(*workload, tpl.Options(query_size=W_PIPE, device="cpu", ref_chunk=256))
+    rng = np.random.default_rng(12)
+    qlist = [rng.standard_normal(n).astype(np.float32) for n in (W_PIPE, 20)]
+    qb, qlens, _ = layout.make_query_batch(qlist, pad_q=core.pad_q)
+    core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens))
+    assert core.routes["clip_host"] == 1
+    core.device = torch.device("cuda")  # the route decides before any tensor moves
+    with pytest.raises(NotImplementedError, match="Next bring_up"):
+        core.sdtw_candidates_submit(qb, qlens)
+    assert core.routes["clip_host"] == 1
+    core.close()
+
+
+def test_auto_route_past_threshold(workload, oneshot_paf, monkeypatch):
+    """ref_chunk=0 takes the chunked route once R + Q passes
+    CHUNK_AUTO_COLS, with the same bytes; ref_chunk=-1 never does."""
+    from sigfish_tpu_torch.runtime import pipeline as tpl
+
+    monkeypatch.setattr(tpl, "CHUNK_AUTO_COLS", 1024)
+    paf, routes = _run_port(*workload, ref_chunk=0)
+    assert paf == oneshot_paf
+    assert routes["chunked"] > 0
+    paf, routes = _run_port(*workload, ref_chunk=-1)
+    assert paf == oneshot_paf
+    assert routes["chunked"] == 0
+
+
+def test_cli_ref_chunk(workload, oneshot_paf, tmp_path):
+    """`python -m sigfish_tpu_torch.cli dtw ... --ref-chunk N --device
+    cpu` writes the library's bytes."""
+    fa, bl = workload
+    out = tmp_path / "out.paf"
+    r = subprocess.run(
+        [sys.executable, "-m", "sigfish_tpu_torch.cli", "dtw", fa, bl,
+         "-q", str(W_PIPE), "-K", "8", "-t", "2", "--device", "cpu",
+         "--ref-chunk", "256", "-o", str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr
+    assert out.read_text() == oneshot_paf

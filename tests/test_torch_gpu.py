@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from sigfish_tpu_torch.ops import alu_peak as ap
 from sigfish_tpu_torch.ops import layout
 from sigfish_tpu_torch.ops import sdtw_wavefront as wf
 
@@ -19,7 +20,7 @@ from sigfish_tpu_torch.ops import sdtw_wavefront as wf
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the wavefront kernel runs only on the card")
+        pytest.skip("needs a CUDA device: the port's CUDA kernels run only on the card")
     return torch.device("cuda")
 
 
@@ -50,6 +51,56 @@ def test_wavefront_kernel_bitwise_vs_plain(cuda_device, W, Q, std):
     torch.cuda.synchronize()
     assert wf.sdtw_wavefront.launches == before + 1
     want = wf.wavefront_plain(q, y, r, lane, sl, std)
+    assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clipped", [False, True])
+@pytest.mark.parametrize("std", [False, True])
+def test_carry_kernel_chained_bitwise_vs_plain(cuda_device, clipped, std):
+    """The carry kernel chained over four uneven segments: scores and the
+    four outgoing state tensors equal the plain version's after every
+    segment, and the chained scores equal one one-shot launch."""
+    W, Q = 250, 256
+    qb, fs, ypad, rspad, lane = _case(7, W, Q)
+    if not clipped:
+        qb = np.random.default_rng(8).standard_normal(qb.shape).astype(np.float32)
+        fs = None
+    q, y, r = (torch.from_numpy(a).to(cuda_device) for a in (qb, ypad, rspad))
+    sl = None if fs is None else torch.from_numpy(fs).to(cuda_device)
+    B, D = q.shape[0], y.shape[1]
+    state = (
+        torch.full((B, Q), layout.BIG, device=cuda_device),
+        torch.full((B, Q), layout.BIG, device=cuda_device),
+        torch.full((1, Q), layout.PAD, device=cuda_device),
+        torch.zeros((1, Q), device=cuda_device),
+    )
+    plain_state = state
+    cuts = [0, 37, D // 3, D // 3 + 32, D]
+    before = wf.sdtw_wavefront_carry.launches
+    got = []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        out = wf.sdtw_wavefront_carry(q, y[:, lo:hi], r[:, lo:hi], *state, lane, sl, std)
+        want = wf.wavefront_plain(q, y[:, lo:hi], r[:, lo:hi], lane, sl, std, *plain_state)
+        torch.cuda.synchronize()
+        for g, w in zip(out, want):
+            assert torch.equal(g.view(torch.int32).cpu(), w.view(torch.int32).cpu())
+        got.append(out[0])
+        state, plain_state = out[1:], want[1:]
+    assert wf.sdtw_wavefront_carry.launches == before + len(cuts) - 1
+    one = wf.sdtw_wavefront(q, y, r, lane, start_lanes=sl, std=std)
+    assert torch.equal(torch.cat(got, 1).view(torch.int32).cpu(), one.view(torch.int32).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ap.MODES)
+def test_alu_peak_kernel_bitwise_vs_plain(cuda_device, mode):
+    x = torch.from_numpy(np.random.default_rng(3).random((40, ap.Q), np.float32)).to(cuda_device)
+    before = ap.alu_peak.launches
+    got = ap.alu_peak(x, mode, 24)
+    torch.cuda.synchronize()
+    assert ap.alu_peak.launches == before + 1
+    want = ap.alu_peak_plain(x, mode, 24)
     assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32).cpu())
 
 

@@ -105,8 +105,10 @@ _MODULES = [
     "sigfish_tpu_torch.models.genref",
     "sigfish_tpu_torch.models.pore_model",
     "sigfish_tpu_torch.native",
+    "sigfish_tpu_torch.ops.alu_peak",
     "sigfish_tpu_torch.ops.candidates",
     "sigfish_tpu_torch.ops.candidates_dev",
+    "sigfish_tpu_torch.ops.chunked_ref",
     "sigfish_tpu_torch.ops.events",
     "sigfish_tpu_torch.ops.jnn",
     "sigfish_tpu_torch.ops.layout",
@@ -114,6 +116,8 @@ _MODULES = [
     "sigfish_tpu_torch.ops.sdtw_wavefront",
     "sigfish_tpu_torch.output",
     "sigfish_tpu_torch.runtime.pipeline",
+    "sigfish_tpu_torch.scripts",
+    "sigfish_tpu_torch.scripts.bench_alu_peak",
     "sigfish_tpu_torch.utils",
 ]
 

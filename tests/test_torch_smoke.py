@@ -1,0 +1,62 @@
+"""chip_smoke.py's workloads, checked on the CPU: what the card run
+relies on without being able to see it."""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+
+from sigfish_tpu_torch.ops.layout import prepare_wavefront_inputs
+from sigfish_tpu_torch.runtime import pipeline as pl
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def smoke_core(smoke, tmp_path_factory):
+    """A CPU Core over the first 30 reads of the phase-4 workload (the
+    reference does not depend on the read count: it is drawn first)."""
+    d = tmp_path_factory.mktemp("smoke")
+    fa, bl, _ = smoke.make_workload(str(d), smoke.N_BASES, 30, smoke.SEED)
+    core = pl.Core(fa, bl, pl.Options(query_size=smoke.W, prefix_size=smoke.PREFIX,
+                                      num_thread=1, device="cpu"))
+    yield core
+    core.close()
+
+
+def test_smoke_workload_clips_one_read_in_ten(smoke, smoke_core):
+    """The short reads (i % 10 == 9) really are clipped, qlen < W, so
+    the card run's clipped-read checks see clipped reads; the others
+    are full-length."""
+    blobs = smoke_core.sf.read_batch(64, 1 << 40)
+    qlens = [pl._prepare_read(smoke_core, b).query.size for b in blobs]
+    assert len(qlens) == 30
+    for i, n in enumerate(qlens):
+        if i % 10 == 9:
+            assert 100 <= n < smoke.W, (i, n)
+        else:
+            assert n == smoke.W, (i, n)
+
+
+def test_bench_reference_is_chip_smokes(smoke_core):
+    """The ALU probe's bench times the wavefront over chip_smoke.py's
+    phase-4 reference: the same buffers as the pipeline builds from its
+    FASTA."""
+    from sigfish_tpu_torch.scripts import bench_alu_peak
+
+    want = prepare_wavefront_inputs(smoke_core.ref_cat, smoke_core.reset, smoke_core.pad_q)
+    ypad, rspad, D = bench_alu_peak.smoke_reference()
+    assert D == want[2] == 60_672
+    np.testing.assert_array_equal(ypad, want[0])
+    np.testing.assert_array_equal(rspad, want[1])
