@@ -16,8 +16,10 @@ no result line) if any of them fails:
               native_host: true|false (false = the exact numpy host
               fallbacks ran)
   3. kernels  the wavefront kernel bit for bit against its plain PyTorch
-              version on the card (B=64, Q=256, the phase-4 reference):
-              full-length reads, clipped reads, std=True; the same for
+              version on the card, every warps-per-read instance (1, 2,
+              4, 8) against one plain run (Q=256, the phase-4
+              reference): full-length reads, clipped reads, std=True at
+              B=64, and clipped reads at B=16; the same for
               its carry mode chained over three uneven segments (scores
               and outgoing state against the plain carry chain, and the
               chained scores against the one-shot launch); the chunked
@@ -42,16 +44,23 @@ no result line) if any of them fails:
               in wavefront steps, and the plain version's ms on the
               card; the outputs of those timed plain runs hold the
               kernels bit for bit at the main path's shapes: the one-shot
-              scores, and the carry kernel's scores and outgoing state
-              over two chained segments (fresh, then carried state)
+              scores (every warps instance), and the carry kernel's
+              scores and outgoing state over two chained segments
+              (fresh, then carried state); then a table of the one-shot
+              kernel's ms per launch for each warps instance at B = 16,
+              64, 128, 256, 512 and 1,024 over the phase-4 reference, the
+              instance ops/sdtw_wavefront.wavefront_warps picks marked
+              with *, and B=16's SM cycles per diagonal
   6. chunked  the chunked reference at full width: a seeded random
               4,641,652-base reference (the length of E. coli K-12
               MG1655), both strands (about 9.28M columns), 1,536 reads in
               3 batches, one in ten clipped, through the automatic
               chunked route (ref_chunk=0); the carry launch count must be
-              > 0, the PAF of a 128-read subset byte-identical to the
-              one-shot route (ref_chunk=-1) on the card, and at least 80%
-              of the reads must map over their origin. Prints reads/s,
+              > 0, the clip groups must have launched an instance with
+              more than one warp per read, the PAF of a 128-read subset
+              byte-identical to the one-shot route (ref_chunk=-1) on the
+              card, and at least 80% of the reads must map over their
+              origin. Prints reads/s,
               the one-shot clip-group launches, the device seconds of the
               main fold and of the clip groups (CUDA events, in a
               --profile-cpu run), and the peak device memory beside what
@@ -119,6 +128,18 @@ def smi_line() -> str:
     if r.returncode != 0:
         fail(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> tuple[float, float]:
+    """(the SM clock now, its maximum) in MHz, as nvidia-smi reads them."""
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if r.returncode != 0:
+        fail(f"nvidia-smi failed: {r.stderr.strip()}")
+    now, top = r.stdout.strip().splitlines()[0].split(",")
+    return float(now), float(top)
 
 
 def make_workload(d: str, n_bases: int, n_reads: int, seed: int):
@@ -363,6 +384,34 @@ def main() -> None:
         full = [rng.standard_normal(W).astype(np.float32) for _ in range(B3)]
         q_full = layout.make_query_batch(full, pad_q=pad_q)[0]
         cuts = [0, 20_000, 40_007, D]  # three uneven segments
+        warps_q = [w for w in wfm.WARPS if pad_q % (32 * w) == 0]
+
+        def check_warps(label, q, sl, std):
+            """Every warps instance against one plain run; returns the
+            scores of the instance the wrapper picks for this B, and the
+            largest error."""
+            t0 = time.time()
+            want = wfm.wavefront_plain(q, ypad, rspad, W - 1, sl, std)
+            torch.cuda.synchronize()
+            plain_s = time.time() - t0
+            picked = wfm.wavefront_warps(q.shape[0], pad_q)
+            worst = 0.0
+            for w in warps_q:
+                got = wfm.sdtw_wavefront(q, ypad, rspad, W - 1, start_lanes=sl, std=std, warps=w)
+                torch.cuda.synchronize()
+                ok = bits_equal(got, want)
+                err = abs_err(got, want)
+                worst = max(worst, err)
+                print(f"wavefront {label}: B={q.shape[0]} Q={pad_q} D={D} warps={w}"
+                      f"{'*' if w == picked else ''} bitwise_equal={ok} max_abs_err={err}")
+                if not ok:
+                    fail(f"wavefront kernel (warps={w}) differs from its plain version ({label}, "
+                         f"B={q.shape[0]})")
+                if w == picked:
+                    kept = got
+            print(f"  (plain {plain_s:.1f} s; * the instance wavefront_warps picks)")
+            return kept, worst
+
         for label, q_h, fs_h, std in (
             ("full-length", q_full, None, False),
             ("clipped", qb_k, fs, False),
@@ -370,18 +419,8 @@ def main() -> None:
         ):
             q = torch.from_numpy(q_h).to(dev)
             sl = None if fs_h is None else torch.from_numpy(fs_h).to(dev)
-            got = wfm.sdtw_wavefront(q, ypad, rspad, W - 1, start_lanes=sl, std=std)
-            torch.cuda.synchronize()
-            t0 = time.time()
-            want = wfm.wavefront_plain(q, ypad, rspad, W - 1, sl, std)
-            torch.cuda.synchronize()
-            ok = bits_equal(got, want)
-            err = abs_err(got, want)
+            got, err = check_warps(label, q, sl, std)
             max_err = max(max_err, err)
-            print(f"wavefront {label}: B={q.shape[0]} Q={q.shape[1]} D={D} bitwise_equal={ok} "
-                  f"max_abs_err={err} (plain {time.time() - t0:.1f} s)")
-            if not ok:
-                fail(f"wavefront kernel differs from its plain version ({label})")
             if label == "clipped":
                 scores = got
 
@@ -408,7 +447,17 @@ def main() -> None:
                 fail(f"carry kernel differs from its plain version ({label})")
             if not one:
                 fail(f"chained carry launches differ from one wavefront launch ({label})")
-            del got, want, parts, st_k, st_p, out_k, out_p
+            del got, parts, st_k, st_p, out_k, out_p
+
+        # a clip group's shape: 16 clipped reads
+        B16 = 16
+        qlens16 = rng.integers(25, W, size=B16).astype(np.int32)
+        q16, qlens16, _ = layout.make_query_batch(
+            [rng.standard_normal(int(n)).astype(np.float32) for n in qlens16], pad_q=pad_q)
+        q16, fs16 = layout.shift_queries_for_clip(q16, qlens16, W - 1)
+        err = check_warps("clipped", torch.from_numpy(q16).to(dev), torch.from_numpy(fs16).to(dev),
+                          False)[1]
+        max_err = max(max_err, err)
 
         # the chunked top-5 (carry kernel + fold) against the one-shot
         # kernel + window_top5, on the card
@@ -448,12 +497,14 @@ def main() -> None:
         # ------------------------------------------------------------ 4
         phase("4 main path at full width")
         wfm.sdtw_wavefront.launches = 0
+        wfm.sdtw_wavefront.launches_by_warps = dict.fromkeys(wfm.WARPS, 0)
         paf, core, dt = run_port(fa, bl, "cuda", state=state)
         launches = wfm.sdtw_wavefront.launches
+        by_warps4 = {w: n for w, n in wfm.sdtw_wavefront.launches_by_warps.items() if n}
         n_lines = len(paf.splitlines())
         print(f"run_dtw on cuda: {core.total_reads} reads, {n_lines} PAF lines, "
               f"{dt:.3f} s, {core.total_reads / dt:.1f} reads/s end to end; "
-              f"wavefront launches: {launches}")
+              f"wavefront launches: {launches} (by warps per read: {by_warps4})")
         if launches <= 0:
             fail("the main path launched no wavefront kernel")
         if core.total_reads != N_READS:
@@ -526,19 +577,22 @@ def main() -> None:
         rng = np.random.default_rng(SEED + 2)
         q = torch.from_numpy(rng.standard_normal((BATCH, pad_q)).astype(np.float32)).to(dev)
         ms, times = median_ms(lambda: wfm.sdtw_wavefront(q, ypad, rspad, W - 1))
-        got = wfm.sdtw_wavefront(q, ypad, rspad, W - 1)
         plain_ms, want = once_ms(lambda: wfm.wavefront_plain(q, ypad, rspad, W - 1))
-        ok = bits_equal(got, want)
-        max_err = max(max_err, abs_err(got, want))
-        print(f"wavefront B={BATCH} Q={pad_q} D={D}: bitwise_equal={ok}")
-        if not ok:
-            fail("wavefront kernel differs from its plain version at the main path's shape")
+        for w in warps_q:
+            got = wfm.sdtw_wavefront(q, ypad, rspad, W - 1, warps=w)
+            ok = bits_equal(got, want)
+            max_err = max(max_err, abs_err(got, want))
+            print(f"wavefront B={BATCH} Q={pad_q} D={D} warps={w}: bitwise_equal={ok}")
+            if not ok:
+                fail(f"wavefront kernel (warps={w}) differs from its plain version at the main "
+                     f"path's shape")
         del got, want
         cells = BATCH * pad_q * D
         bound_ms, bound_by = bound(OPS_PER_CELL * cells, 4 * (BATCH * pad_q + 2 * D + BATCH * D))
         print(f"kernel time in the main path: about {launches * ms / 1e3:.3f} s of "
               f"run_dtw's {dt:.3f} s ({launches} launches x {ms:.3f} ms)")
-        print(f"wavefront B={BATCH} Q={pad_q} D={D}: {ms:.3f} ms per launch (median of {times}), "
+        print(f"wavefront B={BATCH} Q={pad_q} D={D} warps={wfm.wavefront_warps(BATCH, pad_q)}: "
+              f"{ms:.3f} ms per launch (median of {times}), "
               f"{cells / ms / 1e6:.1f} Gcell/s, bound {bound_ms:.3f} ms by {bound_by} "
               f"({OPS_PER_CELL} f32 ops/cell at {PEAK_F32_OPS / 1e12:.0f} TFLOP/s), "
               f"{cells / sol / 1e6:.3f} ms at the probe's {sol:.1f} Gstep/s, "
@@ -587,6 +641,31 @@ def main() -> None:
               f"{probe_bound_ms:.3f} ms by {probe_bound_by}, plain version {probe_plain_ms:.1f} ms")
         del x
 
+        # the one-shot kernel's ms per launch for each warps instance and
+        # batch size, over the phase-4 reference (* = wavefront_warps' pick)
+        print(f"one-shot ms per launch by warps per read, Q={pad_q} D={D} (median of 5; "
+              f"* = the instance wavefront_warps picks); card: {smi}")
+        table = {}
+        q2 = torch.cat([q, q])
+        for Bt in (16, 64, 128, 256, 512, 1024):
+            qt = q2[:Bt].contiguous()
+            row = {w: median_ms(lambda: wfm.sdtw_wavefront(qt, ypad, rspad, W - 1, warps=w))[0]
+                   for w in warps_q}
+            table[Bt] = row
+            pick = wfm.wavefront_warps(Bt, pad_q)
+            print(f"  B={Bt:4d}: " + "  ".join(
+                f"warps={w}{'*' if w == pick else ' '} {t:8.3f}" for w, t in row.items()))
+        clk_now, clk_max = sm_clock_mhz()
+        w16 = wfm.wavefront_warps(16, pad_q)
+        ms16 = table[16][w16]
+        bound16_ms, bound16_by = bound(OPS_PER_CELL * 16 * pad_q * D,
+                                       4 * (16 * pad_q + 2 * D + 16 * D))
+        print(f"B=16 cycles per diagonal at the {clk_max:.0f} MHz maximum SM clock (now "
+              f"{clk_now:.0f} MHz): " + ", ".join(
+                  f"warps={w} {t * 1e-3 * clk_max * 1e6 / D:.1f}" for w, t in table[16].items())
+              + f"; bound {bound16_ms:.4f} ms by {bound16_by}")
+        del q, q2, qt
+
         # ------------------------------------------------------------ 6
         phase("6 chunked reference at full width")
         # the phase-4 subset through forced small segments: card vs CPU
@@ -613,23 +692,28 @@ def main() -> None:
               f"take {oneshot_gb:.2f} GB")
 
         wfm.sdtw_wavefront.launches = 0
+        wfm.sdtw_wavefront.launches_by_warps = dict.fromkeys(wfm.WARPS, 0)
         wfm.sdtw_wavefront_carry.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         paf6, core6, dt6 = run_port(fa6, bl6, "cuda", state=state6)
         carry_launches = wfm.sdtw_wavefront_carry.launches
         clip_launches = wfm.sdtw_wavefront.launches
+        clip_by_warps = {w: n for w, n in wfm.sdtw_wavefront.launches_by_warps.items() if n}
         routes = core6.routes
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print(f"run_dtw on cuda, ref_chunk=0: {core6.total_reads} reads, "
               f"{len(paf6.splitlines())} PAF lines, {dt6:.3f} s, "
               f"{core6.total_reads / dt6:.1f} reads/s end to end; card: {smi}")
-        print(f"carry launches {carry_launches}, one-shot clip-group launches {clip_launches}, "
-              f"routes {routes}; card: {smi}")
+        print(f"carry launches {carry_launches}, one-shot clip-group launches {clip_launches} "
+              f"(by warps per read: {clip_by_warps}), routes {routes}; card: {smi}")
         print(f"peak device memory {peak_gb:.3f} GB (max_memory_allocated) beside "
               f"{oneshot_gb:.2f} GB for the one-shot (512, D) buffer alone; card: {smi}")
         if carry_launches <= 0 or routes["chunked"] <= 0:
             fail("the full-width run did not take the chunked route")
+        if not any(n for w, n in clip_by_warps.items() if w > 1):
+            fail(f"the clip groups launched no instance with more than one warp per read "
+                 f"({clip_by_warps})")
         if core6.total_reads != N6_READS:
             fail(f"{core6.total_reads} reads processed, want {N6_READS}")
         share6 = overlap_share(paf6, truth6)
@@ -680,6 +764,8 @@ def main() -> None:
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
                 "library_ms": None,
+                "warps": {str(BATCH): wfm.wavefront_warps(BATCH, pad_q), "16": w16},
+                "ms_b16": ms16,
             },
             {
                 "name": "sdtw_wavefront_carry",

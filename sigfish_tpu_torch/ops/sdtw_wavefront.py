@@ -22,6 +22,14 @@ Every cell is `local + min(up, min-or-BIG(left, diag))` in f32 in that
 order, and min is exact, so the kernel, the plain version and the JAX
 package's kernel agree bit for bit.
 
+The one-shot kernel splits each read's Q rows over `warps` warps of a
+block (wavefront_warps picks 1, 2, 4 or 8 from B and Q). With more than
+one, row 0's up and diagonal neighbours are BIG instead of the roll's
+wrap from row Q-1. Those values reach only rows below the read's
+free-start lane, so the scores equal the plain version's bit for bit
+provided every start lane is <= lane, as ops/layout.shift_queries_for_clip
+gives. The carry mode's state exposes those rows and keeps one warp.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches csrc/wavefront.cu or raises.
 """
@@ -36,6 +44,15 @@ from .layout import BIG, PAD
 
 # rows per thread the kernel is instantiated for (Q = 32 * rows)
 _KERNEL_ROWS = (1, 2, 4, 8, 12, 16)
+
+# warps per read the one-shot kernel is instantiated for (rows per lane
+# Q / (32 * warps) must be whole)
+WARPS = (1, 2, 4, 8)
+
+# the largest batch the one-shot kernel runs at 4 warps per read (2
+# above): where 4 is the fastest instance in chip_smoke.py phase 5's
+# table of ms per launch at Q=256 over D=60,672 on an H100 (PERF.md)
+_FOUR_WARPS_MAX_B = 256
 
 # f32 operations the recurrence needs per DP cell, the count every bound
 # of the sweep is computed from: sub and abs (local), min(left, diag),
@@ -108,6 +125,16 @@ def wavefront_plain(
     return out, a1, b2, yf[None, :Q].clone(), rf[None, :Q].to(f32)
 
 
+def wavefront_warps(B: int, Q: int) -> int:
+    """Warps per read for a one-shot launch of B reads of Q rows: 4 where
+    B leaves most of the card's 528 schedulers idle and each read's chain
+    of steps is the whole time (fewer rows per lane make every step
+    shorter), 2 once B fills them. The largest count built for Q at or
+    below the table's."""
+    want = 4 if B <= _FOUR_WARPS_MAX_B else 2
+    return max(w for w in WARPS if w <= want and Q % (32 * w) == 0)
+
+
 def _check(queries, ypad, rspad, lane, start_lanes):
     if queries.dtype != torch.float32 or ypad.dtype != torch.float32 or rspad.dtype != torch.float32:
         raise TypeError("sdtw_wavefront: queries, ypad and rspad must be float32")
@@ -133,24 +160,36 @@ def sdtw_wavefront(
     lane: int,                  # the uniform qlen-1 row to emit
     start_lanes: torch.Tensor | None = None,  # (B,) i32 free-start lane per read
     std: bool = False,          # boundary-anchored DTW (--dtw-std)
+    warps: int | None = None,   # warps per read; None: wavefront_warps(B, Q)
 ) -> torch.Tensor:
     """Diag-indexed scores (B, D): out[b, d] = cost[lane, d-lane].
 
     Clipped reads (qlen != lane+1) ride the same emission: shift their
     queries with ops/layout.shift_queries_for_clip and pass its
-    start_lanes. CPU tensors run wavefront_plain; CUDA tensors launch the
-    kernel (counted in sdtw_wavefront.launches) or raise."""
+    start_lanes. Precondition: every start lane is <= lane. With more than
+    one warp per read the rows below a start lane differ from the plain
+    version's, so a start lane above lane would change the emitted row.
+    CPU tensors run wavefront_plain; CUDA tensors launch the kernel
+    (counted in sdtw_wavefront.launches, and per warp count in
+    sdtw_wavefront.launches_by_warps) or raise."""
     _check(queries, ypad, rspad, lane, start_lanes)
+    B, Q = queries.shape
+    if warps is not None and (warps not in WARPS or Q % (32 * warps)):
+        raise ValueError(
+            f"sdtw_wavefront: warps must be one of {WARPS} with Q a multiple of "
+            f"32 * warps; got warps={warps}, Q={Q}"
+        )
     if queries.device.type == "cpu":
         return wavefront_plain(queries, ypad, rspad, lane, start_lanes, std)
     if queries.device.type != "cuda":
         raise ValueError(f"sdtw_wavefront: unsupported device {queries.device}")
-    B, Q = queries.shape
     D = ypad.shape[1]
     if Q % 32 or Q // 32 not in _KERNEL_ROWS:
         raise ValueError(
             f"sdtw_wavefront: the kernel takes Q = 32 * {_KERNEL_ROWS}; got Q={Q}"
         )
+    if warps is None:
+        warps = wavefront_warps(B, Q)
     lib = _library()
     q = queries.contiguous()
     yp = ypad.contiguous()
@@ -163,15 +202,17 @@ def sdtw_wavefront(
     err = lib.sf_wavefront(
         q.data_ptr(), yp.data_ptr(), rp.data_ptr(),
         None if sl is None else sl.data_ptr(), out.data_ptr(),
-        B, Q, D, lane, int(std), stream,
+        B, Q, D, lane, int(std), warps, stream,
     )
     if err != 0:
         raise RuntimeError(f"sdtw_wavefront: CUDA launch failed (cudaError {err})")
     sdtw_wavefront.launches += 1
+    sdtw_wavefront.launches_by_warps[warps] += 1
     return out
 
 
 sdtw_wavefront.launches = 0
+sdtw_wavefront.launches_by_warps = dict.fromkeys(WARPS, 0)
 
 
 def sdtw_wavefront_carry(
@@ -196,7 +237,8 @@ def sdtw_wavefront_carry(
     d-2 rolled by one lane, so the two packages' states compare value
     for value. start_lanes must be the same on every segment of a chain.
     CPU tensors run wavefront_plain; CUDA tensors launch the kernel's
-    carry mode (counted in sdtw_wavefront_carry.launches) or raise."""
+    carry mode, one warp per read (its state's rows below a start lane
+    are the roll's), counted in sdtw_wavefront_carry.launches, or raise."""
     _check(queries, ypad, rspad, lane, start_lanes)
     B, Q = queries.shape
     for name, t, shape in (("a1", a1, (B, Q)), ("a2", a2, (B, Q)),
@@ -256,7 +298,7 @@ def _library() -> ctypes.CDLL:
 
         lib = load_library("wavefront")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sf_wavefront.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.sf_wavefront.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         lib.sf_wavefront.restype = ctypes.c_int
         lib.sf_wavefront_carry.argtypes = [p] * 13 + [i, i, i, i, i, p]
         lib.sf_wavefront_carry.restype = ctypes.c_int

@@ -55,6 +55,25 @@ def test_wavefront_kernel_bitwise_vs_plain(cuda_device, W, Q, std):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("W,Q", [(100, 128), (250, 256), (300, 384), (500, 512)])
+@pytest.mark.parametrize("std", [False, True])
+def test_wavefront_each_warps_bitwise_vs_plain(cuda_device, W, Q, std):
+    """Every warps-per-read instance built for Q, clipped reads and std
+    included, against one plain run; each launch counted under its warps."""
+    qb, fs, ypad, rspad, lane = _case(W + Q + 1, W, Q)
+    q, y, r, sl = (torch.from_numpy(a).to(cuda_device) for a in (qb, ypad, rspad, fs))
+    want = wf.wavefront_plain(q, y, r, lane, sl, std).view(torch.int32).cpu()
+    for w in wf.WARPS:
+        if Q % (32 * w):
+            continue
+        before = wf.sdtw_wavefront.launches_by_warps[w]
+        got = wf.sdtw_wavefront(q, y, r, lane, start_lanes=sl, std=std, warps=w)
+        torch.cuda.synchronize()
+        assert wf.sdtw_wavefront.launches_by_warps[w] == before + 1
+        assert torch.equal(got.view(torch.int32).cpu(), want), w
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("clipped", [False, True])
 @pytest.mark.parametrize("std", [False, True])
 def test_carry_kernel_chained_bitwise_vs_plain(cuda_device, clipped, std):
