@@ -20,9 +20,11 @@ no result line) if any of them fails:
               4, 8) against one plain run (Q=256, the phase-4
               reference): full-length reads, clipped reads, std=True at
               B=64, and clipped reads at B=16; the same for
-              its carry mode chained over three uneven segments (scores
-              and outgoing state against the plain carry chain, and the
-              chained scores against the one-shot launch); the chunked
+              its carry mode chained over three uneven segments, every
+              warps instance and one chain mixing warp counts (scores,
+              and the outgoing state under carry_state_mask, against the
+              plain carry chain, and the chained scores against the
+              one-shot launch); the chunked
               top-5 on the card against window_top5 of the one-shot
               kernel; window_top5 and topk_candidates on the card against
               CPU copies, with planted ties
@@ -46,7 +48,14 @@ no result line) if any of them fails:
               kernels bit for bit at the main path's shapes: the one-shot
               scores (every warps instance), and the carry kernel's
               scores and outgoing state over two chained segments
-              (fresh, then carried state); then a table of the one-shot
+              (fresh, then carried state) at the instance carry_warps
+              picks; the carry kernel's table of ms per segment launch
+              for each warps instance at B = 16, 128, 512 and 1,024
+              (sigfish_tpu_torch.scripts.bench_carry) and at B=512 with
+              start lanes 0 (the instance without FS0), B=512's SM cycles
+              per diagonal beside the probe's ceiling, and its inner
+              loop's SASS instructions per diagonal where cuobjdump
+              exists; then a table of the one-shot
               kernel's ms per launch for each warps instance at B = 16,
               64, 128, 256, 512 and 1,024 over the phase-4 reference, the
               instance ops/sdtw_wavefront.wavefront_warps picks marked
@@ -56,15 +65,18 @@ no result line) if any of them fails:
               MG1655), both strands (about 9.28M columns), 1,536 reads in
               3 batches, one in ten clipped, through the automatic
               chunked route (ref_chunk=0); the carry launch count must be
-              > 0, the clip groups must have launched an instance with
+              > 0, the main fold must have launched the carry instance
+              carry_warps picks at B=512, the clip groups must have
+              launched an instance with
               more than one warp per read, the PAF of a 128-read subset
               byte-identical to the one-shot route (ref_chunk=-1) on the
               card, and at least 80% of the reads must map over their
               origin. Prints reads/s,
               the one-shot clip-group launches, the device seconds of the
               main fold and of the clip groups (CUDA events, in a
-              --profile-cpu run), and the peak device memory beside what
-              the one-shot (512, D) score buffer alone would take. Before
+              --profile-cpu run), and the peak device memory of both runs
+              beside what the one-shot (512, D) score buffer alone
+              would take. Before
               that, the phase-4 subset through a forced ref_chunk of
               4,000 diagonals on the card is held byte for byte to the
               same on the CPU.
@@ -79,7 +91,6 @@ import io
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -128,18 +139,6 @@ def smi_line() -> str:
     if r.returncode != 0:
         fail(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
-
-
-def sm_clock_mhz() -> tuple[float, float]:
-    """(the SM clock now, its maximum) in MHz, as nvidia-smi reads them."""
-    r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if r.returncode != 0:
-        fail(f"nvidia-smi failed: {r.stderr.strip()}")
-    now, top = r.stdout.strip().splitlines()[0].split(",")
-    return float(now), float(top)
 
 
 def make_workload(d: str, n_bases: int, n_reads: int, seed: int):
@@ -258,23 +257,6 @@ def abs_err(a, b) -> float:
     return float(torch.where(a == b, 0.0, (a - b).abs()).max())
 
 
-def median_ms(fn, n: int = 5) -> tuple[float, list[float]]:
-    """Median device ms of fn() over n calls after one warm-up (CUDA events)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times), times
-
-
 def once_ms(fn):
     """(device ms, result) of one call of fn() (CUDA events), no warm-up."""
     import torch
@@ -308,6 +290,8 @@ def main() -> None:
     import numpy as np
 
     from sigfish_tpu_torch.kernels import build as kbuild
+    from sigfish_tpu_torch.scripts import bench_carry
+    from sigfish_tpu_torch.scripts.timing import median_ms, sm_clock_mhz
     from sigfish_tpu_torch.ops import alu_peak as apm
     from sigfish_tpu_torch.ops import layout
     from sigfish_tpu_torch.ops import sdtw_wavefront as wfm
@@ -347,14 +331,6 @@ def main() -> None:
     native_ok = native.available()  # builds it (g++) on first use
     print(f"native host library built and loaded in {time.time() - t0:.2f} s")
     print(f"native_host: {'true' if native_ok else 'false'}")
-
-    def fresh_state(B: int, Q: int):
-        return (
-            torch.full((B, Q), layout.BIG, device=dev),
-            torch.full((B, Q), layout.BIG, device=dev),
-            torch.full((1, Q), layout.PAD, device=dev),
-            torch.zeros((1, Q), device=dev),
-        )
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -424,30 +400,43 @@ def main() -> None:
             if label == "clipped":
                 scores = got
 
-            # the carry mode, chained, against the plain carry chain
-            st_k = st_p = fresh_state(B3, pad_q)
-            parts = []
-            ok = True
+            # the carry mode, chained, every warps instance and one chain
+            # mixing warp counts against one plain carry chain: scores,
+            # and the state under carry_state_mask
             t0 = time.time()
+            plain, st_p = [], wfm.carry_fresh_state(B3, pad_q, dev)
             for lo, hi in zip(cuts[:-1], cuts[1:]):
-                out_k = wfm.sdtw_wavefront_carry(q, ypad[:, lo:hi], rspad[:, lo:hi], *st_k,
-                                                 W - 1, sl, std)
-                out_p = wfm.wavefront_plain(q, ypad[:, lo:hi], rspad[:, lo:hi], W - 1, sl, std, *st_p)
-                torch.cuda.synchronize()
-                for a, b in zip(out_k, out_p):
-                    ok = ok and bits_equal(a, b)
-                    carry_err = max(carry_err, abs_err(a, b))
-                st_k, st_p = out_k[1:], out_p[1:]
-                parts.append(out_k[0])
-            one = bits_equal(torch.cat(parts, dim=1), got)
-            print(f"carry {label}: segments {cuts}, scores and state bitwise_equal={ok}, "
-                  f"chained == one launch: {one}, max_abs_err={carry_err} "
-                  f"(plain {time.time() - t0:.1f} s)")
-            if not ok:
-                fail(f"carry kernel differs from its plain version ({label})")
-            if not one:
-                fail(f"chained carry launches differ from one wavefront launch ({label})")
-            del got, parts, st_k, st_p, out_k, out_p
+                plain.append(wfm.wavefront_plain(q, ypad[:, lo:hi], rspad[:, lo:hi], W - 1, sl, std,
+                                                 *st_p))
+                st_p = plain[-1][1:]
+            torch.cuda.synchronize()
+            plain_s = time.time() - t0
+            masks = wfm.carry_state_mask(sl, B3, pad_q, dev)
+            mixed = (warps_q[-1], warps_q[0], warps_q[1])
+            for chain in [(w,) * len(plain) for w in warps_q] + [mixed]:
+                st_k, parts, ok = wfm.carry_fresh_state(B3, pad_q, dev), [], True
+                for (lo, hi), w, want in zip(zip(cuts[:-1], cuts[1:]), chain, plain):
+                    out_k = wfm.sdtw_wavefront_carry(q, ypad[:, lo:hi], rspad[:, lo:hi], *st_k,
+                                                     W - 1, sl, std, warps=w)
+                    torch.cuda.synchronize()
+                    ok = ok and bits_equal(out_k[0], want[0])
+                    carry_err = max(carry_err, abs_err(out_k[0], want[0]))
+                    for a, b, m in zip(out_k[1:], want[1:], masks):
+                        ok = ok and bits_equal(a[m], b[m])
+                        carry_err = max(carry_err, abs_err(a[m], b[m]))
+                    st_k = out_k[1:]
+                    parts.append(out_k[0])
+                one = bits_equal(torch.cat(parts, dim=1), got)
+                print(f"carry {label}: segments {cuts}, warps per segment {chain}, scores and "
+                      f"masked state bitwise_equal={ok}, chained == one launch: {one}, "
+                      f"max_abs_err={carry_err}")
+                if not ok:
+                    fail(f"carry kernel differs from its plain version ({label}, warps {chain})")
+                if not one:
+                    fail(f"chained carry launches differ from one wavefront launch ({label}, "
+                         f"warps {chain})")
+            print(f"  (plain carry chain {plain_s:.1f} s)")
+            del got, parts, st_k, st_p, out_k, plain, want
 
         # a clip group's shape: 16 clipped reads
         B16 = 16
@@ -576,7 +565,7 @@ def main() -> None:
         # bit for bit to the plain version's (timed) output
         rng = np.random.default_rng(SEED + 2)
         q = torch.from_numpy(rng.standard_normal((BATCH, pad_q)).astype(np.float32)).to(dev)
-        ms, times = median_ms(lambda: wfm.sdtw_wavefront(q, ypad, rspad, W - 1))
+        ms = median_ms(lambda: wfm.sdtw_wavefront(q, ypad, rspad, W - 1), 5)
         plain_ms, want = once_ms(lambda: wfm.wavefront_plain(q, ypad, rspad, W - 1))
         for w in warps_q:
             got = wfm.sdtw_wavefront(q, ypad, rspad, W - 1, warps=w)
@@ -592,25 +581,27 @@ def main() -> None:
         print(f"kernel time in the main path: about {launches * ms / 1e3:.3f} s of "
               f"run_dtw's {dt:.3f} s ({launches} launches x {ms:.3f} ms)")
         print(f"wavefront B={BATCH} Q={pad_q} D={D} warps={wfm.wavefront_warps(BATCH, pad_q)}: "
-              f"{ms:.3f} ms per launch (median of {times}), "
+              f"{ms:.3f} ms per launch (median of 5), "
               f"{cells / ms / 1e6:.1f} Gcell/s, bound {bound_ms:.3f} ms by {bound_by} "
               f"({OPS_PER_CELL} f32 ops/cell at {PEAK_F32_OPS / 1e12:.0f} TFLOP/s), "
               f"{cells / sol / 1e6:.3f} ms at the probe's {sol:.1f} Gstep/s, "
               f"plain version {plain_ms:.1f} ms; card: {smi}")
 
         # the carry kernel at the chunked route's shape: its first two
-        # segments of the phase-4 reference, chained from a fresh state;
-        # timed on the first, and each held bit for bit (scores and the
-        # four outgoing state tensors) to the plain version's
+        # segments of the phase-4 reference, chained from a fresh state at
+        # the instance carry_warps picks, each held bit for bit (scores
+        # and the four outgoing state tensors, all guaranteed with no
+        # start lanes) to the plain version's; then its table of ms per
+        # segment launch by B and warps over the first segment, B=512's
+        # cycles per diagonal and the SASS count (scripts/bench_carry.py)
         yps, rps, _, Ds, _ = prepare_chunked_inputs(
             state.ref_cat, state.reset, valid_h, pad_q, W, target=32768)
         if yps.shape[0] < 2:
             fail(f"the phase-4 reference gives {yps.shape[0]} segments of {Ds}; want 2")
         yps = torch.from_numpy(yps).to(dev)
         rps = torch.from_numpy(rps).to(dev)
-        st_k = st_p = fresh_state(BATCH, pad_q)
-        c_ms, c_times = median_ms(
-            lambda: wfm.sdtw_wavefront_carry(q, yps[0], rps[0], *st_k, W - 1))
+        st_k = st_p = wfm.carry_fresh_state(BATCH, pad_q, dev)
+        c_pick = wfm.carry_warps(BATCH, pad_q)
         plain_times = []
         for s_i in range(2):
             out_k = wfm.sdtw_wavefront_carry(q, yps[s_i], rps[s_i], *st_k, W - 1)
@@ -626,15 +617,25 @@ def main() -> None:
                 fail(f"carry kernel differs from its plain version at the chunked route's "
                      f"shape (segment {s_i})")
             st_k, st_p = out_k[1:], out_p[1:]
-        del out_k, out_p, st_k, st_p, yps, rps
+        del out_k, out_p, st_k, st_p
         c_plain_ms = plain_times[0]
+        carry_bench = bench_carry.main(y=yps[0], r=rps[0])
+        del yps, rps
+        c_ms = carry_bench["table"][str(BATCH)][str(c_pick)]
+        c_ms1 = carry_bench["table"][str(BATCH)]["1"]
         c_cells = BATCH * pad_q * Ds
         c_bound_ms, c_bound_by = bound(
             OPS_PER_CELL * c_cells,
             4 * (BATCH * pad_q + 2 * Ds + BATCH * Ds + 2 * (2 * BATCH * pad_q + 2 * pad_q)))
-        print(f"carry B={BATCH} Q={pad_q} Ds={Ds}: {c_ms:.3f} ms per segment launch (median of "
-              f"{c_times}), {c_cells / c_ms / 1e6:.1f} Gcell/s, bound {c_bound_ms:.3f} ms by "
-              f"{c_bound_by}, {c_cells / sol / 1e6:.3f} ms at the probe's {sol:.1f} Gstep/s, "
+        c_ceil_ms = c_cells / sol / 1e6
+        clk_max = carry_bench["clock_max_mhz"]
+        print(f"carry B={BATCH} Q={pad_q} Ds={Ds} warps={c_pick}: {c_ms:.3f} ms per segment "
+              f"launch ({c_ms1:.3f} at 1 warp), {c_cells / c_ms / 1e6:.1f} Gcell/s, bound "
+              f"{c_bound_ms:.3f} ms by {c_bound_by}, {c_ceil_ms:.3f} ms at the probe's {sol:.1f} "
+              f"Gstep/s; {c_ms * 1e-3 * clk_max * 1e6 / Ds:.1f} SM cycles per diagonal against "
+              f"{c_ceil_ms * 1e-3 * clk_max * 1e6 / Ds:.1f} at the probe's ceiling and "
+              f"{c_bound_ms * 1e-3 * clk_max * 1e6 / Ds:.1f} at the bound ({clk_max:.0f} MHz); "
+              f"SASS instructions per diagonal {carry_bench['sass_per_diagonal'] or 'not counted'}; "
               f"plain version {c_plain_ms:.1f} ms (fresh state; {plain_times[1]:.1f} ms "
               f"carried); card: {smi}")
         print(f"alu_peak mix B={BATCH} iters={PROBE_ITERS}: {probe_ms:.3f} ms per launch, bound "
@@ -649,7 +650,7 @@ def main() -> None:
         q2 = torch.cat([q, q])
         for Bt in (16, 64, 128, 256, 512, 1024):
             qt = q2[:Bt].contiguous()
-            row = {w: median_ms(lambda: wfm.sdtw_wavefront(qt, ypad, rspad, W - 1, warps=w))[0]
+            row = {w: median_ms(lambda: wfm.sdtw_wavefront(qt, ypad, rspad, W - 1, warps=w), 5)
                    for w in warps_q}
             table[Bt] = row
             pick = wfm.wavefront_warps(Bt, pad_q)
@@ -694,10 +695,12 @@ def main() -> None:
         wfm.sdtw_wavefront.launches = 0
         wfm.sdtw_wavefront.launches_by_warps = dict.fromkeys(wfm.WARPS, 0)
         wfm.sdtw_wavefront_carry.launches = 0
+        wfm.sdtw_wavefront_carry.launches_by_warps = dict.fromkeys(wfm.WARPS, 0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         paf6, core6, dt6 = run_port(fa6, bl6, "cuda", state=state6)
         carry_launches = wfm.sdtw_wavefront_carry.launches
+        carry_by_warps = {w: n for w, n in wfm.sdtw_wavefront_carry.launches_by_warps.items() if n}
         clip_launches = wfm.sdtw_wavefront.launches
         clip_by_warps = {w: n for w, n in wfm.sdtw_wavefront.launches_by_warps.items() if n}
         routes = core6.routes
@@ -705,12 +708,16 @@ def main() -> None:
         print(f"run_dtw on cuda, ref_chunk=0: {core6.total_reads} reads, "
               f"{len(paf6.splitlines())} PAF lines, {dt6:.3f} s, "
               f"{core6.total_reads / dt6:.1f} reads/s end to end; card: {smi}")
-        print(f"carry launches {carry_launches}, one-shot clip-group launches {clip_launches} "
-              f"(by warps per read: {clip_by_warps}), routes {routes}; card: {smi}")
+        print(f"carry launches {carry_launches} (by warps per read: {carry_by_warps}), one-shot "
+              f"clip-group launches {clip_launches} (by warps per read: {clip_by_warps}), routes "
+              f"{routes}; card: {smi}")
         print(f"peak device memory {peak_gb:.3f} GB (max_memory_allocated) beside "
               f"{oneshot_gb:.2f} GB for the one-shot (512, D) buffer alone; card: {smi}")
         if carry_launches <= 0 or routes["chunked"] <= 0:
             fail("the full-width run did not take the chunked route")
+        if not carry_by_warps.get(c_pick):
+            fail(f"the main fold launched no carry instance at carry_warps' pick of {c_pick} "
+                 f"warps per read for B={BATCH} ({carry_by_warps})")
         if not any(n for w, n in clip_by_warps.items() if w > 1):
             fail(f"the clip groups launched no instance with more than one warp per read "
                  f"({clip_by_warps})")
@@ -721,7 +728,11 @@ def main() -> None:
         if share6 < 0.8:
             fail(f"only {share6:.4f} of the reads map over the position they were drawn from")
 
+        # the serial run's peak: one batch in flight
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         ppaf6, pcore6, pdt6 = run_port(fa6, bl6, "cuda", state=state6, profile=True)
+        peak_serial_gb = torch.cuda.max_memory_allocated() / 1e9
         fold_s = pcore6.span_seconds("chunked")
         clip_s = pcore6.span_seconds("clip_groups")
         n_fold, n_clip_g = len(pcore6.spans["chunked"]), len(pcore6.spans["clip_groups"])
@@ -730,7 +741,7 @@ def main() -> None:
               f"{n_clip_g} groups (device time, CUDA events); host stages: "
               f"parse {pcore6.parse_time:.3f} s, events {pcore6.event_time:.3f} s, normalise "
               f"{pcore6.normalise_time:.3f} s; the rest {pdt6 - fold_s - clip_s:.3f} s; "
-              f"card: {smi}")
+              f"peak device memory {peak_serial_gb:.3f} GB; card: {smi}")
         if ppaf6 != paf6:
             fail("the --profile-cpu run's PAF differs from the overlapped run's")
         if (n_fold, n_clip_g) != (pcore6.routes["chunked"], pcore6.routes["clip_groups"]) \
@@ -779,6 +790,10 @@ def main() -> None:
                 "bound_ms": c_bound_ms,
                 "bound_by": c_bound_by,
                 "library_ms": None,
+                "warps": {str(BATCH): c_pick},
+                "launches_by_warps": {str(w): n for w, n in carry_by_warps.items()},
+                "ms_by_warps": carry_bench["table"][str(BATCH)],
+                "ms_by_warps_start_lanes": carry_bench["b512_start_lanes"],
             },
             {
                 "name": "alu_peak",

@@ -50,7 +50,7 @@ import torch
 
 from .candidates_dev import BIG, _pack, _select_latest_min
 from .layout import PAD
-from .sdtw_wavefront import sdtw_wavefront_carry
+from .sdtw_wavefront import carry_fresh_state, sdtw_wavefront_carry
 
 # chunk once the diagonal-indexed score buffer would pass this many
 # columns (the JAX package's threshold; 4*B*D bytes at B=512 is 2 GB)
@@ -132,10 +132,7 @@ def sdtw_wavefront_chunked_top5(
     nw_c = (p + Ds + W - 1) // W  # windows a segment touches
     G = S * npc + 2               # window 0 is the guard for columns < 0
 
-    a1 = torch.full((B, Q), BIG, dtype=f32, device=dev)
-    a2 = torch.full((B, Q), BIG, dtype=f32, device=dev)
-    ywin = torch.full((1, Q), PAD, dtype=f32, device=dev)
-    rswin = torch.zeros((1, Q), dtype=f32, device=dev)
+    a1, a2, ywin, rswin = carry_fresh_state(B, Q, dev)
     wmin_g = torch.full((B, G), BIG, dtype=f32, device=dev)
     wpos_g = torch.full((B, G), -1, dtype=torch.int32, device=dev)
     widx = torch.arange(nw_c, dtype=torch.int32, device=dev) * W    # (nw_c,)

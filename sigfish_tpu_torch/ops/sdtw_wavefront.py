@@ -20,15 +20,20 @@ column-indexed last DP row.
 
 Every cell is `local + min(up, min-or-BIG(left, diag))` in f32 in that
 order, and min is exact, so the kernel, the plain version and the JAX
-package's kernel agree bit for bit.
+package's kernel agree bit for bit. (The carry mode computes
+min-or-BIG as a max with a 0-or-BIG flag, and the free-start row from
+its inputs; csrc/wavefront.cu's header shows these give the same bits.)
 
-The one-shot kernel splits each read's Q rows over `warps` warps of a
-block (wavefront_warps picks 1, 2, 4 or 8 from B and Q). With more than
-one, row 0's up and diagonal neighbours are BIG instead of the roll's
-wrap from row Q-1. Those values reach only rows below the read's
-free-start lane, so the scores equal the plain version's bit for bit
-provided every start lane is <= lane, as ops/layout.shift_queries_for_clip
-gives. The carry mode's state exposes those rows and keeps one warp.
+The kernel splits each read's Q rows over `warps` warps of a block
+(1, 2, 4 or 8; wavefront_warps picks the one-shot count and carry_warps
+the carry mode's from B and Q). With more than one, row 0's up and
+diagonal neighbours are BIG instead of the roll's wrap from row Q-1.
+Those values reach only rows below the read's free-start lane, so the
+scores equal the plain version's bit for bit provided every start lane
+is <= lane, as ops/layout.shift_queries_for_clip gives. The carry
+mode's outgoing state differs from the roll's only in the entries
+carry_state_mask leaves out, which no row at or above the start lane
+ever reads.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches csrc/wavefront.cu or raises.
@@ -45,8 +50,8 @@ from .layout import BIG, PAD
 # rows per thread the kernel is instantiated for (Q = 32 * rows)
 _KERNEL_ROWS = (1, 2, 4, 8, 12, 16)
 
-# warps per read the one-shot kernel is instantiated for (rows per lane
-# Q / (32 * warps) must be whole)
+# warps per read the kernel is instantiated for, in both modes (rows per
+# lane Q / (32 * warps) must be whole)
 WARPS = (1, 2, 4, 8)
 
 # the largest batch the one-shot kernel runs at 4 warps per read (2
@@ -54,11 +59,29 @@ WARPS = (1, 2, 4, 8)
 # table of ms per launch at Q=256 over D=60,672 on an H100 (PERF.md)
 _FOUR_WARPS_MAX_B = 256
 
+# the largest batch the carry mode runs at 2 warps per read (1 above):
+# where 2 is the fastest instance in chip_smoke.py phase 5's table of ms
+# per segment launch at Q=256 over Ds=32,000 on an H100 (PERF.md)
+_CARRY_TWO_WARPS_MAX_B = 512
+
 # f32 operations the recurrence needs per DP cell, the count every bound
 # of the sweep is computed from: sub and abs (local), min(left, diag),
 # the reset select, min with up, add, and the free-start select. Moving
 # values between lanes and picking the emitted lane are not counted.
 OPS_PER_CELL = 7
+
+
+def carry_fresh_state(B: int, Q: int, device) -> tuple[torch.Tensor, ...]:
+    """The carry state before a reference's first diagonal, in
+    sdtw_wavefront_carry's form: a1 and a2 BIG (B, Q), ywin PAD and rswin
+    0 (1, Q)."""
+    f32 = torch.float32
+    return (
+        torch.full((B, Q), BIG, dtype=f32, device=device),
+        torch.full((B, Q), BIG, dtype=f32, device=device),
+        torch.full((1, Q), PAD, dtype=f32, device=device),
+        torch.zeros((1, Q), dtype=f32, device=device),
+    )
 
 
 def wavefront_plain(
@@ -89,10 +112,7 @@ def wavefront_plain(
     if carry != (a2 is not None) or carry != (ywin is not None) or carry != (rswin is not None):
         raise ValueError("wavefront_plain: pass all four of a1, a2, ywin, rswin or none")
     if not carry:
-        a1 = torch.full((B, Q), BIG, dtype=f32, device=dev)
-        a2 = torch.full((B, Q), BIG, dtype=f32, device=dev)
-        ywin = torch.full((1, Q), PAD, dtype=f32, device=dev)
-        rswin = torch.zeros((1, Q), dtype=f32, device=dev)
+        a1, a2, ywin, rswin = carry_fresh_state(B, Q, dev)
     lanes = torch.arange(Q, device=dev)
     if start_lanes is None:
         start_lanes = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -131,8 +151,51 @@ def wavefront_warps(B: int, Q: int) -> int:
     of steps is the whole time (fewer rows per lane make every step
     shorter), 2 once B fills them. The largest count built for Q at or
     below the table's."""
-    want = 4 if B <= _FOUR_WARPS_MAX_B else 2
+    return _built_warps(4 if B <= _FOUR_WARPS_MAX_B else 2, Q)
+
+
+def carry_warps(B: int, Q: int) -> int:
+    """Warps per read for a carry launch of B reads of Q rows: 2 up to
+    B=512 (the chunked route's main fold), 1 beyond, from the carry
+    mode's own table. Its cells are cheaper than the one-shot mode's (no
+    compare per cell without start lanes, reset flags as 0 or BIG), so
+    fewer warps per read pay off sooner. The largest count built for Q
+    at or below the table's."""
+    return _built_warps(2 if B <= _CARRY_TWO_WARPS_MAX_B else 1, Q)
+
+
+def _built_warps(want: int, Q: int) -> int:
+    """The largest warp count built for Q at or below `want`."""
     return max(w for w in WARPS if w <= want and Q % (32 * w) == 0)
+
+
+def _check_warps(fn: str, warps: int | None, Q: int) -> None:
+    if warps is not None and (warps not in WARPS or Q % (32 * warps)):
+        raise ValueError(
+            f"{fn}: warps must be one of {WARPS} with Q a multiple of "
+            f"32 * warps; got warps={warps}, Q={Q}"
+        )
+
+
+def carry_state_mask(start_lanes: torch.Tensor | None, B: int, Q: int, device=None):
+    """The entries of the carry mode's outgoing state (a1, a2, ywin,
+    rswin) that the kernel guarantees bitwise equal to wavefront_plain's
+    for every warp count, as four bool masks of the state's shapes.
+
+    With start lane s: a1's rows >= s, and the rolled a2's element 0
+    (A_{d-2}[Q-1]) and elements s+1 .. Q-1 (rows >= s of A_{d-2}); all
+    of ywin and rswin. With every start lane 0 (or None) that is all of
+    it. The rest are rows below s, computed from BIG in place of the
+    roll's wrap when a read is split over warps; row s depends only on
+    itself, so no row >= s ever reads them, and chained segments keep
+    their scores whatever warp counts they mix."""
+    rows = torch.arange(Q, device=device)[None, :]
+    s = (torch.zeros(B, dtype=torch.long, device=device) if start_lanes is None
+         else start_lanes.to(device=device, dtype=torch.long))[:, None]
+    a1 = rows >= s
+    a2 = (rows == 0) | (rows > s)
+    full = torch.ones((1, Q), dtype=torch.bool, device=device)
+    return a1, a2, full, full.clone()
 
 
 def _check(queries, ypad, rspad, lane, start_lanes):
@@ -174,11 +237,7 @@ def sdtw_wavefront(
     sdtw_wavefront.launches_by_warps) or raise."""
     _check(queries, ypad, rspad, lane, start_lanes)
     B, Q = queries.shape
-    if warps is not None and (warps not in WARPS or Q % (32 * warps)):
-        raise ValueError(
-            f"sdtw_wavefront: warps must be one of {WARPS} with Q a multiple of "
-            f"32 * warps; got warps={warps}, Q={Q}"
-        )
+    _check_warps("sdtw_wavefront", warps, Q)
     if queries.device.type == "cpu":
         return wavefront_plain(queries, ypad, rspad, lane, start_lanes, std)
     if queries.device.type != "cuda":
@@ -226,6 +285,7 @@ def sdtw_wavefront_carry(
     lane: int,
     start_lanes: torch.Tensor | None = None,
     std: bool = False,
+    warps: int | None = None,   # warps per read; None: carry_warps(B, Q)
 ):
     """sdtw_wavefront over one reference segment with explicit
     cross-segment state; returns (scores (B, D), a1, a2, ywin, rswin).
@@ -235,12 +295,21 @@ def sdtw_wavefront_carry(
     sdtw_wavefront over their concatenation. The state is the JAX
     package's (sdtw_pallas.sdtw_wavefront_carry): a2 is the diagonal
     d-2 rolled by one lane, so the two packages' states compare value
-    for value. start_lanes must be the same on every segment of a chain.
+    for value. start_lanes must be the same on every segment of a chain,
+    and every start lane <= lane.
+
+    What the kernel guarantees, for every warp count: the scores are
+    bitwise equal to the plain version's; with every start lane 0 so is
+    all of the outgoing state; with start lanes s, the state under
+    carry_state_mask (a1 rows >= s, the rolled a2's elements 0 and
+    s+1..Q-1, all of ywin and rswin). The rest, rows below s, no row >= s
+    ever reads, so a chain may mix warp counts from launch to launch.
     CPU tensors run wavefront_plain; CUDA tensors launch the kernel's
-    carry mode, one warp per read (its state's rows below a start lane
-    are the roll's), counted in sdtw_wavefront_carry.launches, or raise."""
+    carry mode, counted in sdtw_wavefront_carry.launches and per warp
+    count in sdtw_wavefront_carry.launches_by_warps, or raise."""
     _check(queries, ypad, rspad, lane, start_lanes)
     B, Q = queries.shape
+    _check_warps("sdtw_wavefront_carry", warps, Q)
     for name, t, shape in (("a1", a1, (B, Q)), ("a2", a2, (B, Q)),
                            ("ywin", ywin, (1, Q)), ("rswin", rswin, (1, Q))):
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
@@ -261,6 +330,8 @@ def sdtw_wavefront_carry(
         )
     if D < 1:
         raise ValueError("sdtw_wavefront_carry: empty segment")
+    if warps is None:
+        warps = carry_warps(B, Q)
     lib = _library()
     q = queries.contiguous()
     state_in = [t.contiguous() for t in (a1, a2, ywin, rswin)]
@@ -275,15 +346,17 @@ def sdtw_wavefront_carry(
         None if sl is None else sl.data_ptr(),
         *(t.data_ptr() for t in state_in), out.data_ptr(),
         *(t.data_ptr() for t in state_out),
-        B, Q, D, lane, int(std), stream,
+        B, Q, D, lane, int(std), warps, stream,
     )
     if err != 0:
         raise RuntimeError(f"sdtw_wavefront_carry: CUDA launch failed (cudaError {err})")
     sdtw_wavefront_carry.launches += 1
+    sdtw_wavefront_carry.launches_by_warps[warps] += 1
     return (out, *state_out)
 
 
 sdtw_wavefront_carry.launches = 0
+sdtw_wavefront_carry.launches_by_warps = dict.fromkeys(WARPS, 0)
 
 _lib: ctypes.CDLL | None = None
 
@@ -300,7 +373,7 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.sf_wavefront.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         lib.sf_wavefront.restype = ctypes.c_int
-        lib.sf_wavefront_carry.argtypes = [p] * 13 + [i, i, i, i, i, p]
+        lib.sf_wavefront_carry.argtypes = [p] * 13 + [i, i, i, i, i, i, p]
         lib.sf_wavefront_carry.restype = ctypes.c_int
         _lib = lib
     return _lib

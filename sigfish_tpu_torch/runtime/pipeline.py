@@ -75,9 +75,10 @@ from ..utils import log_info, log_warning
 # through the one-shot kernel, as the JAX package sizes it. A group holds
 # three (rows, D)-sized buffers at peak (the scores, the clip pass's row
 # take and its column slice), so rows = budget // (12 * D), rounded down
-# to a power of two: 16-row groups at 9.3M columns. The bound is per
-# batch: run_dtw double-buffers, so one batch's lazily submitted groups
-# can overlap the next batch's group 0. A budget below one row sends the
+# to a power of two: 16-row groups at 9.3M columns. One group is
+# submitted at a time across batches (Core._oneshot_lock), though run_dtw
+# double-buffers and submits one batch's later groups beside the next
+# batch's group 0. A budget below one row sends the
 # clipped reads to the exact host per-read DP (Core._clipped_top5) on
 # device="cpu", and raises on the card, which does no work on the host.
 _CLIP_ONESHOT_BYTES = 2 << 30
@@ -95,7 +96,7 @@ _LATER = {
     "pore": "item 7 (R10 and RNA004 chemistries)",
     "host_stages": "item 10 (--host-stages device)",
     "mesh": "item 11 (multi-GPU mesh)",
-    "clip_rows": "'Next bring_up' (the sweep redesign that serves clipped reads on the card)",
+    "clip_rows": "'Clipped reads past ~179M columns' (a chunked clip path on the card)",
 }
 
 
@@ -300,6 +301,12 @@ class Core:
         # --profile-cpu on the card: CUDA event pairs around each route's
         # device work, read by span_seconds once the run has drained
         self.spans = {"oneshot": [], "chunked": [], "clip_groups": []}
+        # one one-shot submission at a time: run_dtw's drain thread submits
+        # a batch's later clip groups while the main thread submits the next
+        # batch's group 0, and each holds its (rows, D) buffers until its
+        # launches are queued. The device runs them in turn on one stream
+        # either way; without the lock their buffers may meet.
+        self._oneshot_lock = threading.Lock()
 
         # counters (ref core_t)
         self.total_reads = 0
@@ -461,7 +468,7 @@ class Core:
             fs_dev = torch.from_numpy(fs_lanes).to(self.device)
         else:
             qb_k, fs_dev = qb, None
-        with self._span("clip_groups" if force_oneshot else "oneshot"):
+        with self._oneshot_lock, self._span("clip_groups" if force_oneshot else "oneshot"):
             scores = sdtw_wavefront(
                 torch.from_numpy(qb_k).to(self.device), ypad, rspad,
                 lane=W - 1, start_lanes=fs_dev,

@@ -125,6 +125,37 @@ def test_carry_chain_equals_one_pass(seg, std):
     np.testing.assert_array_equal(_bits(torch.cat(got, dim=1).numpy()), _bits(want.numpy()))
 
 
+@pytest.mark.parametrize("std", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_carry_state_outside_the_mask_is_never_read(seed, std):
+    """What carry_state_mask leaves out of the state (rows below a read's
+    start lane) may hold anything: the JAX carry kernel, fed garbage
+    there, returns the same scores and the same state under the mask.
+    That is what lets the split CUDA kernel's state differ there, and
+    lets a chain mix warp counts."""
+    qb, fs, ypad, rspad, lane = _case(seed)
+    B, Q = qb.shape
+    assert fs.max() > 1, "want clipped reads"
+
+    def segment(s, state):
+        return jax_carry(
+            jnp.asarray(qb), jnp.asarray(ypad[:, s * TD : (s + 1) * TD]),
+            jnp.asarray(rspad[:, s * TD : (s + 1) * TD]), *(jnp.asarray(a) for a in state),
+            lane=lane, td=TD, unroll=4, interpret=True, start_lanes=jnp.asarray(fs), std=std,
+        )
+
+    masks = [m.numpy() for m in wf.carry_state_mask(torch.from_numpy(fs), B, Q)]
+    state = [np.asarray(a) for a in segment(0, _fresh(B, Q))[1:]]
+    rng = np.random.default_rng(seed + 20)
+    noisy = [np.where(m, a, rng.standard_normal(a.shape).astype(np.float32) * 1e3)
+             for a, m in zip(state, masks)]
+    assert any((n != a).any() for n, a in zip(noisy, state))
+    want, got = segment(1, state), segment(1, noisy)
+    np.testing.assert_array_equal(_bits(got[0]), _bits(want[0]))
+    for name, g, w, m in zip(("a1", "a2", "ywin", "rswin"), got[1:], want[1:], masks):
+        np.testing.assert_array_equal(_bits(np.asarray(g)[m]), _bits(np.asarray(w)[m]), err_msg=name)
+
+
 def test_plain_carry_arguments_all_or_none():
     qb, _, ypad, rspad, lane = _case(2)
     q, y, r = (torch.from_numpy(a) for a in (qb, ypad, rspad))
@@ -308,6 +339,54 @@ def test_chunked_batch_of_clipped_reads_only(workload):
     assert (got[1][:, 0] >= 0).all()
 
 
+def test_oneshot_submissions_hold_their_buffers_one_at_a_time(workload, monkeypatch):
+    """run_dtw's drain thread submits a batch's later clip groups while
+    the main thread submits the next batch's first: one one-shot
+    submission at a time runs the kernel and holds its (rows, D) buffers,
+    so two groups' buffers never meet; each thread's candidates are
+    unchanged."""
+    import threading
+    import time
+
+    from sigfish_tpu_torch.runtime import pipeline as tpl
+
+    guard, inside, most = threading.Lock(), [0], [0]
+    real = tpl.sdtw_wavefront
+
+    def slow(*args, **kw):
+        with guard:
+            inside[0] += 1
+            most[0] = max(most[0], inside[0])
+        time.sleep(0.05)
+        try:
+            return real(*args, **kw)
+        finally:
+            with guard:
+                inside[0] -= 1
+
+    monkeypatch.setattr(tpl, "sdtw_wavefront", slow)
+    core = tpl.Core(*workload, tpl.Options(query_size=W_PIPE, device="cpu", ref_chunk=256))
+    rng = np.random.default_rng(13)
+    qlist = [rng.standard_normal(n).astype(np.float32) for n in (20, 33)]
+    qb, qlens, _ = layout.make_query_batch(qlist, pad_q=core.pad_q)
+    handles = [None] * 4
+
+    def submit(i):
+        handles[i] = core.sdtw_candidates_submit(qb, qlens, force_oneshot=True)
+
+    threads = [threading.Thread(target=submit, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    got = [core.sdtw_candidates_collect(h) for h in handles]
+    core.close()
+    assert most[0] == 1
+    for g in got[1:]:
+        for a, b in zip(g, got[0]):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_clip_budget_below_one_row_raises_on_the_card(workload, monkeypatch):
     """On the card, clipped reads that not even one one-shot row can
     serve raise (naming the ROADMAP item) instead of running the host
@@ -324,7 +403,7 @@ def test_clip_budget_below_one_row_raises_on_the_card(workload, monkeypatch):
     core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens))
     assert core.routes["clip_host"] == 1
     core.device = torch.device("cuda")  # the route decides before any tensor moves
-    with pytest.raises(NotImplementedError, match="Next bring_up"):
+    with pytest.raises(NotImplementedError, match="Clipped reads past"):
         core.sdtw_candidates_submit(qb, qlens)
     assert core.routes["clip_host"] == 1
     core.close()

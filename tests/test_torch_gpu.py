@@ -73,42 +73,67 @@ def test_wavefront_each_warps_bitwise_vs_plain(cuda_device, W, Q, std):
         assert torch.equal(got.view(torch.int32).cpu(), want), w
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("clipped", [False, True])
-@pytest.mark.parametrize("std", [False, True])
-def test_carry_kernel_chained_bitwise_vs_plain(cuda_device, clipped, std):
-    """The carry kernel chained over four uneven segments: scores and the
-    four outgoing state tensors equal the plain version's after every
-    segment, and the chained scores equal one one-shot launch."""
+def _carry_chain(dev, clipped, std, warps_of):
+    """The carry kernel chained over four uneven segments (37, then 32
+    more at a third of D), segment i at warps_of(i) warps per read, each
+    launch held to the plain carry chain: scores bitwise, and the state
+    bitwise under carry_state_mask (all of it for full-length reads).
+    Returns the chained scores and the one-shot launch's, on the host."""
     W, Q = 250, 256
     qb, fs, ypad, rspad, lane = _case(7, W, Q)
     if not clipped:
         qb = np.random.default_rng(8).standard_normal(qb.shape).astype(np.float32)
         fs = None
-    q, y, r = (torch.from_numpy(a).to(cuda_device) for a in (qb, ypad, rspad))
-    sl = None if fs is None else torch.from_numpy(fs).to(cuda_device)
+    q, y, r = (torch.from_numpy(a).to(dev) for a in (qb, ypad, rspad))
+    sl = None if fs is None else torch.from_numpy(fs).to(dev)
     B, D = q.shape[0], y.shape[1]
     state = (
-        torch.full((B, Q), layout.BIG, device=cuda_device),
-        torch.full((B, Q), layout.BIG, device=cuda_device),
-        torch.full((1, Q), layout.PAD, device=cuda_device),
-        torch.zeros((1, Q), device=cuda_device),
+        torch.full((B, Q), layout.BIG, device=dev),
+        torch.full((B, Q), layout.BIG, device=dev),
+        torch.full((1, Q), layout.PAD, device=dev),
+        torch.zeros((1, Q), device=dev),
     )
     plain_state = state
+    masks = wf.carry_state_mask(sl, B, Q, dev)
     cuts = [0, 37, D // 3, D // 3 + 32, D]
-    before = wf.sdtw_wavefront_carry.launches
     got = []
-    for lo, hi in zip(cuts[:-1], cuts[1:]):
-        out = wf.sdtw_wavefront_carry(q, y[:, lo:hi], r[:, lo:hi], *state, lane, sl, std)
+    for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+        w = warps_of(i)
+        before = wf.sdtw_wavefront_carry.launches_by_warps[w]
+        out = wf.sdtw_wavefront_carry(q, y[:, lo:hi], r[:, lo:hi], *state, lane, sl, std, warps=w)
         want = wf.wavefront_plain(q, y[:, lo:hi], r[:, lo:hi], lane, sl, std, *plain_state)
         torch.cuda.synchronize()
-        for g, w in zip(out, want):
-            assert torch.equal(g.view(torch.int32).cpu(), w.view(torch.int32).cpu())
+        assert wf.sdtw_wavefront_carry.launches_by_warps[w] == before + 1
+        assert torch.equal(out[0].view(torch.int32).cpu(), want[0].view(torch.int32).cpu()), (i, w)
+        for name, g, x, m in zip(("a1", "a2", "ywin", "rswin"), out[1:], want[1:], masks):
+            assert torch.equal(g[m].view(torch.int32).cpu(), x[m].view(torch.int32).cpu()), (name, i, w)
         got.append(out[0])
         state, plain_state = out[1:], want[1:]
-    assert wf.sdtw_wavefront_carry.launches == before + len(cuts) - 1
     one = wf.sdtw_wavefront(q, y, r, lane, start_lanes=sl, std=std)
-    assert torch.equal(torch.cat(got, 1).view(torch.int32).cpu(), one.view(torch.int32).cpu())
+    return torch.cat(got, 1).view(torch.int32).cpu(), one.view(torch.int32).cpu()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warps", wf.WARPS)
+@pytest.mark.parametrize("clipped", [False, True])
+@pytest.mark.parametrize("std", [False, True])
+def test_carry_kernel_chained_bitwise_vs_plain(cuda_device, clipped, std, warps):
+    """The carry kernel at each warps-per-read instance of Q=256, chained
+    over four uneven segments: scores and the masked outgoing state equal
+    the plain version's after every segment, and the chained scores equal
+    one one-shot launch."""
+    chained, one = _carry_chain(cuda_device, clipped, std, lambda i: warps)
+    assert torch.equal(chained, one)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clipped", [False, True])
+@pytest.mark.parametrize("std", [False, True])
+def test_carry_kernel_chain_mixing_warps(cuda_device, clipped, std):
+    """Consecutive launches at 8, 1, 2 and 4 warps per read: the same
+    scores and masked state as the plain chain, and as one launch."""
+    chained, one = _carry_chain(cuda_device, clipped, std, lambda i: (8, 1, 2, 4)[i])
+    assert torch.equal(chained, one)
 
 
 @pytest.mark.gpu

@@ -118,6 +118,9 @@ _MODULES = [
     "sigfish_tpu_torch.runtime.pipeline",
     "sigfish_tpu_torch.scripts",
     "sigfish_tpu_torch.scripts.bench_alu_peak",
+    "sigfish_tpu_torch.scripts.bench_carry",
+    "sigfish_tpu_torch.scripts.peak_memory",
+    "sigfish_tpu_torch.scripts.timing",
     "sigfish_tpu_torch.utils",
 ]
 
