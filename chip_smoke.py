@@ -26,8 +26,13 @@ no result line) if any of them fails:
               plain carry chain, and the chained scores against the
               one-shot launch); the chunked
               top-5 on the card against window_top5 of the one-shot
-              kernel; window_top5 and topk_candidates on the card against
-              CPU copies, with planted ties
+              kernel; the chunked route's clip fold (a carry chain with
+              start lanes over four segments, clipped reads of qlen 25,
+              97 and W-1, ties planted across segment boundaries by flat
+              reference stretches) against topk_candidates of the
+              one-shot kernel's scores on the card; window_top5 and
+              topk_candidates on the card against CPU copies, with
+              planted ties
   4. main     R9 DNA `dtw -p 50 -q 250` through run_dtw on device="cuda"
               (B=512, 8 threads) over a seeded random 29,903-base
               reference (the length of the nCoV-2019 reference), both
@@ -49,7 +54,9 @@ no result line) if any of them fails:
               scores (every warps instance), and the carry kernel's
               scores and outgoing state over two chained segments
               (fresh, then carried state) at the instance carry_warps
-              picks; the carry kernel's table of ms per segment launch
+              picks, with no start lanes and with start lanes and one
+              row in ten clipped as in phase 6 (the state there under
+              carry_state_mask); the carry kernel's table of ms per segment launch
               for each warps instance at B = 16, 128, 512 and 1,024
               (sigfish_tpu_torch.scripts.bench_carry) and at B=512 with
               start lanes 0 (the instance without FS0), B=512's SM cycles
@@ -66,15 +73,16 @@ no result line) if any of them fails:
               3 batches, one in ten clipped, through the automatic
               chunked route (ref_chunk=0); the carry launch count must be
               > 0, the main fold must have launched the carry instance
-              carry_warps picks at B=512, the clip groups must have
-              launched an instance with
-              more than one warp per read, the PAF of a 128-read subset
-              byte-identical to the one-shot route (ref_chunk=-1) on the
-              card, and at least 80% of the reads must map over their
-              origin. Prints reads/s,
-              the one-shot clip-group launches, the device seconds of the
-              main fold and of the clip groups (CUDA events, in a
-              --profile-cpu run), and the peak device memory of both runs
+              carry_warps picks at B=512, every launch with start lanes
+              (the clipped rows ride the batch's chain), the one-shot
+              kernel never, the clip fold must have served each batch
+              once, the PAF of a 128-read subset byte-identical to the
+              one-shot route (ref_chunk=-1) on the card, and at least 80%
+              of the reads must map over their origin. Prints reads/s,
+              the device seconds of the chunked chains (CUDA events, in
+              a --profile-cpu run whose PAF must be the same), the
+              clip fold's device and host ms per segment beside the
+              carry launch's, and the peak device memory of the runs
               beside what the one-shot (512, D) score buffer alone
               would take. Before
               that, the phase-4 subset through a forced ref_chunk of
@@ -297,6 +305,7 @@ def main() -> None:
     from sigfish_tpu_torch.ops import sdtw_wavefront as wfm
     from sigfish_tpu_torch.ops.sdtw_wavefront import OPS_PER_CELL
     from sigfish_tpu_torch.ops.candidates_dev import topk_candidates, window_top5
+    from sigfish_tpu_torch.ops import chunked_ref as crm
     from sigfish_tpu_torch.ops.chunked_ref import (
         chunk_segment_diags,
         prepare_chunked_inputs,
@@ -438,7 +447,7 @@ def main() -> None:
             print(f"  (plain carry chain {plain_s:.1f} s)")
             del got, parts, st_k, st_p, out_k, plain, want
 
-        # a clip group's shape: 16 clipped reads
+        # a small batch of clipped reads: 16 rows (the one-shot 4-warp instance)
         B16 = 16
         qlens16 = rng.integers(25, W, size=B16).astype(np.int32)
         q16, qlens16, _ = layout.make_query_batch(
@@ -464,9 +473,49 @@ def main() -> None:
         if not ok:
             fail("the chunked top-5 on the card differs from the one-shot route's")
 
+        # the chunked route's clip fold on the card against topk_candidates
+        # of the one-shot kernel's scores on the card: clipped reads of
+        # qlen 25, 97 (which divides neither W nor Ds) and W-1 beside
+        # full-length reads in one carry chain with start lanes, over the
+        # phase-4 reference with a flat stretch across two segment
+        # boundaries and flat queries, so that windows split by a
+        # boundary hold equal minima on both sides
+        u_d = torch.from_numpy(u_h).to(dev)
+        ref_t = state.ref_cat.copy()
+        for b in (Ds3, 2 * Ds3):
+            c0 = b - (W - 1)  # the first column of segment b / Ds3
+            ref_t[c0 - 400 : c0 + 400] = 0.25
+        yp_t, rp_t, _ = layout.prepare_wavefront_inputs(ref_t, state.reset, pad_q)
+        yps_t, rps_t, _, _, _ = prepare_chunked_inputs(ref_t, state.reset, valid_h, pad_q, W,
+                                                       target=16_000)
+        ts_t, ls_t = crm.prepare_clip_inputs(state.offsets, state.track_sizes, W, *vs.shape)
+        qlens_t = np.tile(np.array([W, 25, 97, W - 1, W, 97, 25, W - 1], np.int32), 4)
+        qlist = [rng.standard_normal(int(n)).astype(np.float32) for n in qlens_t]
+        for i in range(0, qlens_t.size, 3):
+            qlist[i][:] = 0.25
+        q_t, qlens_t, _ = layout.make_query_batch(qlist, pad_q=pad_q)
+        q_t, fs_t = layout.shift_queries_for_clip(q_t, qlens_t, W - 1)
+        rows_t = np.where(qlens_t != W)[0]
+        bases_t, nwin_t = crm.clip_window_bases(state.track_sizes, qlens_t[rows_t])
+        td = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        clip_t = crm.ClipFold(td(rows_t), td(qlens_t[rows_t]), td(bases_t), nwin_t, td(ts_t),
+                              td(ls_t), td(vs), W)
+        crm.carry_chain(td(q_t), td(yps_t), td(rps_t), W - 1, [clip_t], td(fs_t))
+        got = clip_t.top5()
+        one_t = wfm.sdtw_wavefront(td(q_t), td(yp_t), td(rp_t), W - 1, start_lanes=td(fs_t))
+        want = topk_candidates(one_t[td(rows_t)][:, W - 1 : W - 1 + R], td(qlens_t[rows_t]),
+                               u_d, valid_d, R, reindex=False, pack=True)
+        ok = bits_equal(got, want)
+        ties = [int((v == v.min()).sum()) for v in one_t[td(rows_t)][:, W - 1 : W - 1 + R]]
+        print(f"clip fold: {rows_t.size} clipped rows (qlens {sorted(set(qlens_t[rows_t].tolist()))}), "
+              f"{yps_t.shape[0]} segments of {Ds3} diagonals, most columns at a row's minimum "
+              f"{max(ties)}, bitwise_equal to topk_candidates(one-shot)={ok}")
+        if not ok:
+            fail("the clip fold on the card differs from topk_candidates of the one-shot kernel")
+        del one_t, clip_t
+
         # the candidate reduction on the card against CPU copies, on the
         # kernel's scores and on small-integer scores full of ties
-        u_d = torch.from_numpy(u_h).to(dev)
         qlens_d = torch.from_numpy(qlens).to(dev)
         ties = torch.from_numpy(rng.integers(0, 6, size=(B3, D)).astype(np.float32)).to(dev)
         ties[0] = 3.0
@@ -589,9 +638,11 @@ def main() -> None:
 
         # the carry kernel at the chunked route's shape: its first two
         # segments of the phase-4 reference, chained from a fresh state at
-        # the instance carry_warps picks, each held bit for bit (scores
-        # and the four outgoing state tensors, all guaranteed with no
-        # start lanes) to the plain version's; then its table of ms per
+        # the instance carry_warps picks, each held bit for bit to the
+        # plain version's: with no start lanes (the FS0 instance) the scores
+        # and the four outgoing state tensors; with start lanes and one row
+        # in ten clipped, as phase 6's batches have them, the scores and
+        # the state under carry_state_mask. Then its table of ms per
         # segment launch by B and warps over the first segment, B=512's
         # cycles per diagonal and the SASS count (scripts/bench_carry.py)
         yps, rps, _, Ds, _ = prepare_chunked_inputs(
@@ -600,44 +651,58 @@ def main() -> None:
             fail(f"the phase-4 reference gives {yps.shape[0]} segments of {Ds}; want 2")
         yps = torch.from_numpy(yps).to(dev)
         rps = torch.from_numpy(rps).to(dev)
-        st_k = st_p = wfm.carry_fresh_state(BATCH, pad_q, dev)
         c_pick = wfm.carry_warps(BATCH, pad_q)
-        plain_times = []
-        for s_i in range(2):
-            out_k = wfm.sdtw_wavefront_carry(q, yps[s_i], rps[s_i], *st_k, W - 1)
-            t, out_p = once_ms(
-                lambda: wfm.wavefront_plain(q, yps[s_i], rps[s_i], W - 1, None, False, *st_p))
-            plain_times.append(t)
-            ok = all(bits_equal(a, b) for a, b in zip(out_k, out_p))
-            carry_err = max([carry_err] + [abs_err(a, b) for a, b in zip(out_k, out_p)])
-            print(f"carry B={BATCH} Q={pad_q} Ds={Ds} segment {s_i} "
-                  f"({'fresh' if s_i == 0 else 'carried'} state): scores and state "
-                  f"bitwise_equal={ok}")
-            if not ok:
-                fail(f"carry kernel differs from its plain version at the chunked route's "
-                     f"shape (segment {s_i})")
-            st_k, st_p = out_k[1:], out_p[1:]
-        del out_k, out_p, st_k, st_p
-        c_plain_ms = plain_times[0]
+        q_h = q.cpu().numpy()
+        rows_sl = np.arange(9, BATCH, 10)
+        qlens_sl = np.full(BATCH, W, np.int32)
+        qlens_sl[rows_sl] = rng.integers(150, W, size=rows_sl.size)
+        q_sl, _, _ = layout.make_query_batch([q_h[i, :n] for i, n in enumerate(qlens_sl)],
+                                             pad_q=pad_q)
+        q_sl, fs_sl = layout.shift_queries_for_clip(q_sl, qlens_sl, W - 1)
+        plain_times = {}
+        for sl_label, q_c, sl_c in (("no start lanes", q, None),
+                                    ("start lanes, one row in ten clipped", td(q_sl), td(fs_sl))):
+            masks = wfm.carry_state_mask(sl_c, BATCH, pad_q, dev)
+            st_k = st_p = wfm.carry_fresh_state(BATCH, pad_q, dev)
+            plain_times[sl_c is not None] = []
+            for s_i in range(2):
+                out_k = wfm.sdtw_wavefront_carry(q_c, yps[s_i], rps[s_i], *st_k, W - 1, sl_c)
+                t, out_p = once_ms(lambda: wfm.wavefront_plain(
+                    q_c, yps[s_i], rps[s_i], W - 1, sl_c, False, *st_p))
+                plain_times[sl_c is not None].append(t)
+                pairs = [(out_k[0], out_p[0])] + [
+                    (a[m], b[m]) for a, b, m in zip(out_k[1:], out_p[1:], masks)]
+                ok = all(bits_equal(a, b) for a, b in pairs)
+                carry_err = max([carry_err] + [abs_err(a, b) for a, b in pairs])
+                print(f"carry B={BATCH} Q={pad_q} Ds={Ds} segment {s_i} "
+                      f"({'fresh' if s_i == 0 else 'carried'} state), {sl_label}: scores and "
+                      f"{'masked ' if sl_c is not None else ''}state bitwise_equal={ok}")
+                if not ok:
+                    fail(f"carry kernel differs from its plain version at the chunked route's "
+                         f"shape (segment {s_i}, {sl_label})")
+                st_k, st_p = out_k[1:], out_p[1:]
+        del out_k, out_p, st_k, st_p, pairs, q_c, sl_c
         carry_bench = bench_carry.main(y=yps[0], r=rps[0])
         del yps, rps
-        c_ms = carry_bench["table"][str(BATCH)][str(c_pick)]
+        c_ms_fs0 = carry_bench["table"][str(BATCH)][str(c_pick)]
+        c_ms_sl = carry_bench["b512_start_lanes"][str(c_pick)]
         c_ms1 = carry_bench["table"][str(BATCH)]["1"]
         c_cells = BATCH * pad_q * Ds
-        c_bound_ms, c_bound_by = bound(
-            OPS_PER_CELL * c_cells,
-            4 * (BATCH * pad_q + 2 * Ds + BATCH * Ds + 2 * (2 * BATCH * pad_q + 2 * pad_q)))
+        c_bytes = 4 * (BATCH * pad_q + 2 * Ds + BATCH * Ds + 2 * (2 * BATCH * pad_q + 2 * pad_q))
+        c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes)
         c_ceil_ms = c_cells / sol / 1e6
         clk_max = carry_bench["clock_max_mhz"]
-        print(f"carry B={BATCH} Q={pad_q} Ds={Ds} warps={c_pick}: {c_ms:.3f} ms per segment "
-              f"launch ({c_ms1:.3f} at 1 warp), {c_cells / c_ms / 1e6:.1f} Gcell/s, bound "
-              f"{c_bound_ms:.3f} ms by {c_bound_by}, {c_ceil_ms:.3f} ms at the probe's {sol:.1f} "
-              f"Gstep/s; {c_ms * 1e-3 * clk_max * 1e6 / Ds:.1f} SM cycles per diagonal against "
+        print(f"carry B={BATCH} Q={pad_q} Ds={Ds} warps={c_pick}: {c_ms_fs0:.3f} ms per segment "
+              f"launch with no start lanes ({c_ms1:.3f} at 1 warp), {c_ms_sl:.3f} with start lanes, "
+              f"{c_cells / c_ms_fs0 / 1e6:.1f} Gcell/s, bound {c_bound_ms:.3f} ms by {c_bound_by}, "
+              f"{c_ceil_ms:.3f} ms at the probe's {sol:.1f} Gstep/s; "
+              f"{c_ms_fs0 * 1e-3 * clk_max * 1e6 / Ds:.1f} SM cycles per diagonal against "
               f"{c_ceil_ms * 1e-3 * clk_max * 1e6 / Ds:.1f} at the probe's ceiling and "
               f"{c_bound_ms * 1e-3 * clk_max * 1e6 / Ds:.1f} at the bound ({clk_max:.0f} MHz); "
               f"SASS instructions per diagonal {carry_bench['sass_per_diagonal'] or 'not counted'}; "
-              f"plain version {c_plain_ms:.1f} ms (fresh state; {plain_times[1]:.1f} ms "
-              f"carried); card: {smi}")
+              f"plain version {plain_times[False][0]:.1f} ms with no start lanes, "
+              f"{plain_times[True][0]:.1f} with (fresh state; {plain_times[False][1]:.1f} / "
+              f"{plain_times[True][1]:.1f} ms carried); card: {smi}")
         print(f"alu_peak mix B={BATCH} iters={PROBE_ITERS}: {probe_ms:.3f} ms per launch, bound "
               f"{probe_bound_ms:.3f} ms by {probe_bound_by}, plain version {probe_plain_ms:.1f} ms")
         del x
@@ -696,20 +761,22 @@ def main() -> None:
         wfm.sdtw_wavefront.launches_by_warps = dict.fromkeys(wfm.WARPS, 0)
         wfm.sdtw_wavefront_carry.launches = 0
         wfm.sdtw_wavefront_carry.launches_by_warps = dict.fromkeys(wfm.WARPS, 0)
+        wfm.sdtw_wavefront_carry.launches_start_lanes = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         paf6, core6, dt6 = run_port(fa6, bl6, "cuda", state=state6)
         carry_launches = wfm.sdtw_wavefront_carry.launches
         carry_by_warps = {w: n for w, n in wfm.sdtw_wavefront_carry.launches_by_warps.items() if n}
-        clip_launches = wfm.sdtw_wavefront.launches
-        clip_by_warps = {w: n for w, n in wfm.sdtw_wavefront.launches_by_warps.items() if n}
+        carry_start_lanes = wfm.sdtw_wavefront_carry.launches_start_lanes
+        oneshot_launches = wfm.sdtw_wavefront.launches
         routes = core6.routes
+        n_batches6 = -(-N6_READS // BATCH)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print(f"run_dtw on cuda, ref_chunk=0: {core6.total_reads} reads, "
               f"{len(paf6.splitlines())} PAF lines, {dt6:.3f} s, "
               f"{core6.total_reads / dt6:.1f} reads/s end to end; card: {smi}")
-        print(f"carry launches {carry_launches} (by warps per read: {carry_by_warps}), one-shot "
-              f"clip-group launches {clip_launches} (by warps per read: {clip_by_warps}), routes "
+        print(f"carry launches {carry_launches} (by warps per read: {carry_by_warps}; with start "
+              f"lanes: {carry_start_lanes}), one-shot launches {oneshot_launches}, routes "
               f"{routes}; card: {smi}")
         print(f"peak device memory {peak_gb:.3f} GB (max_memory_allocated) beside "
               f"{oneshot_gb:.2f} GB for the one-shot (512, D) buffer alone; card: {smi}")
@@ -718,9 +785,14 @@ def main() -> None:
         if not carry_by_warps.get(c_pick):
             fail(f"the main fold launched no carry instance at carry_warps' pick of {c_pick} "
                  f"warps per read for B={BATCH} ({carry_by_warps})")
-        if not any(n for w, n in clip_by_warps.items() if w > 1):
-            fail(f"the clip groups launched no instance with more than one warp per read "
-                 f"({clip_by_warps})")
+        if oneshot_launches:
+            fail(f"the chunked run launched the one-shot kernel {oneshot_launches} times")
+        if routes["clip_fold"] != n_batches6 or routes["chunked"] != n_batches6:
+            fail(f"want the main fold and the clip fold once in each of {n_batches6} batches, "
+                 f"each with clipped reads ({routes})")
+        if carry_start_lanes != carry_launches:
+            fail(f"{carry_launches - carry_start_lanes} of {carry_launches} carry launches had no "
+                 f"start lanes: the clipped rows did not ride the batch's chain")
         if core6.total_reads != N6_READS:
             fail(f"{core6.total_reads} reads processed, want {N6_READS}")
         share6 = overlap_share(paf6, truth6)
@@ -728,26 +800,55 @@ def main() -> None:
         if share6 < 0.8:
             fail(f"only {share6:.4f} of the reads map over the position they were drawn from")
 
-        # the serial run's peak: one batch in flight
+        # the serial run's peak, one batch in flight, and the device
+        # seconds of its chains (CUDA events)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ppaf6, pcore6, pdt6 = run_port(fa6, bl6, "cuda", state=state6, profile=True)
         peak_serial_gb = torch.cuda.max_memory_allocated() / 1e9
         fold_s = pcore6.span_seconds("chunked")
-        clip_s = pcore6.span_seconds("clip_groups")
-        n_fold, n_clip_g = len(pcore6.spans["chunked"]), len(pcore6.spans["clip_groups"])
+        n_fold = len(pcore6.spans["chunked"])
         print(f"--profile-cpu run ({pdt6:.3f} s, unoverlapped): main fold {fold_s:.3f} s in "
-              f"{n_fold} folds, clip groups {clip_s:.3f} s in "
-              f"{n_clip_g} groups (device time, CUDA events); host stages: "
-              f"parse {pcore6.parse_time:.3f} s, events {pcore6.event_time:.3f} s, normalise "
-              f"{pcore6.normalise_time:.3f} s; the rest {pdt6 - fold_s - clip_s:.3f} s; "
-              f"peak device memory {peak_serial_gb:.3f} GB; card: {smi}")
+              f"{n_fold} chains (device time, CUDA events); host stages: parse "
+              f"{pcore6.parse_time:.3f} s, events {pcore6.event_time:.3f} s, normalise "
+              f"{pcore6.normalise_time:.3f} s; the rest {pdt6 - fold_s:.3f} s; peak device memory "
+              f"{peak_serial_gb:.3f} GB beside {oneshot_gb:.2f} GB for the one-shot (512, D) "
+              f"buffer; card: {smi}")
         if ppaf6 != paf6:
             fail("the --profile-cpu run's PAF differs from the overlapped run's")
-        if (n_fold, n_clip_g) != (pcore6.routes["chunked"], pcore6.routes["clip_groups"]) \
-                or n_fold == 0:
-            fail(f"spans ({n_fold} folds, {n_clip_g} clip groups) do not match the routes "
-                 f"taken ({pcore6.routes})")
+        if n_fold != pcore6.routes["chunked"] or n_fold == 0:
+            fail(f"{n_fold} spans do not match the routes taken ({pcore6.routes})")
+
+        # the clip fold's cost per segment beside the carry launch's: device
+        # ms (CUDA events) and host ms to queue it, for the batch's clipped
+        # rows (one in ten of 512) of a B=512 segment of phase 6
+        valid6 = layout.build_column_maps(state6.offsets, R6, track_sizes=state6.track_sizes)[1]
+        yps6, rps6, vs6, Ds6, nwin6 = prepare_chunked_inputs(
+            state6.ref_cat, state6.reset, valid6, pad_q, W)
+        ts6, ls6 = crm.prepare_clip_inputs(state6.offsets, state6.track_sizes, W, *vs6.shape)
+        rng6 = np.random.default_rng(SEED + 7)
+        rows6 = np.arange(9, BATCH, 10)
+        qlens6 = rng6.integers(150, W, size=rows6.size).astype(np.int32)
+        bases6, nw6 = crm.clip_window_bases(state6.track_sizes, qlens6)
+        clip6 = crm.ClipFold(td(rows6), td(qlens6), td(bases6), nw6, td(ts6), td(ls6), td(vs6), W)
+        window6 = crm.WindowFold(BATCH, td(vs6), W, nwin6)
+        sc6 = torch.from_numpy(rng6.random((BATCH, Ds6), np.float32)).to(dev)
+        seg6 = vs6.shape[0] // 2
+        fold_ms = {}
+        for fname, fold in (("clip fold", clip6), ("window fold", window6)):
+            host = []
+
+            def step():
+                t0 = time.perf_counter()
+                fold.update(seg6, sc6)
+                host.append(time.perf_counter() - t0)
+            fold_ms[fname] = (median_ms(step, 20), float(np.median(host)) * 1e3)
+        print(f"per segment of {Ds6} diagonals at B={BATCH}, {rows6.size} clipped rows: "
+              + ", ".join(f"{k} {d:.3f} ms on the device, {h:.3f} ms on the host"
+                          for k, (d, h) in fold_ms.items())
+              + f"; carry launch {c_ms_sl:.3f} ms with start lanes, {c_ms_fs0:.3f} without "
+              f"(warps={c_pick}); card: {smi}")
+        del yps6, rps6, vs6, ts6, ls6, clip6, window6, sc6
 
         by_id6 = {ln.split("\t")[0]: ln for ln in paf6.splitlines()}
         keep6 = [f"read{i:05d}" for i in range(SUBSET6)]
@@ -762,6 +863,9 @@ def main() -> None:
         if not ok:
             fail("the chunked route's PAF differs from the one-shot route's")
 
+        # the carry entry times the instance phase 6 launched (every launch
+        # with start lanes, checked above); the start lanes add B i32 reads
+        c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes + 4 * BATCH)
         result = {"kernels": [
             {
                 "name": "sdtw_wavefront",
@@ -785,13 +889,15 @@ def main() -> None:
                 "replaces": "sigfish_tpu/ops/sdtw_pallas.py:211",
                 "launches": carry_launches,
                 "max_abs_err": carry_err,
-                "ms": c_ms,
-                "plain_ms": c_plain_ms,
+                "ms": c_ms_sl,
+                "plain_ms": plain_times[True][0],
                 "bound_ms": c_bound_ms,
                 "bound_by": c_bound_by,
                 "library_ms": None,
                 "warps": {str(BATCH): c_pick},
                 "launches_by_warps": {str(w): n for w, n in carry_by_warps.items()},
+                "launches_start_lanes": carry_start_lanes,
+                "ms_no_start_lanes": c_ms_fs0,
                 "ms_by_warps": carry_bench["table"][str(BATCH)],
                 "ms_by_warps_start_lanes": carry_bench["b512_start_lanes"],
             },

@@ -2,8 +2,11 @@
 
 The `dtw` option table of sigfish_tpu/cli.py, restricted to what this
 slice of the port serves (R9 DNA subsequence DTW, PAF out, one device),
-plus --device. The flags of later slices are accepted and raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+plus --device. The flags of later slices, and the `eval` command, are
+accepted and raise NotImplementedError naming the ROADMAP.md item that
+brings them. --accel and --engine choose among the JAX package's
+engines; the port picks its path with --device, so an explicit value of
+either is an error that names --device.
 
 ref: sigfish src/main.c (dispatch), src/dtw_main.c.
 """
@@ -65,12 +68,19 @@ def make_dtw_parser(prog: str = "sigfish_tpu_torch dtw") -> argparse.ArgumentPar
     p.add_argument("--full-ref", action="store_true", help="map to the full reference (not served yet)")
     p.add_argument("--from-end", action="store_true", help="map the end portion of the query (not served yet)")
     p.add_argument("--profile-cpu", type=_yes_no, default=False, metavar="yes|no", help="process section by section with per-stage timers")
+    p.add_argument("--accel", type=_yes_no, default=None, metavar="yes|no", help="the JAX package's engine choice; this port uses --device instead")
+    p.add_argument("--engine", choices=["pallas", "scan", "native"], default=None, help="the JAX package's engine choice; this port uses --device instead")
     p.add_argument("--host-stages", choices=["host", "device"], default="host", help="where eventization runs (only host is served yet)")
     p.add_argument("--ref-chunk", type=int, default=0, metavar="INT", help="reference-axis chunking: 0 auto (past 2^20 columns), -1 never, N>0 always, in segments of about N diagonals [0]")
     p.add_argument("-a", "--sam", action="store_true", help="output in SAM format (not served yet)")
     p.add_argument("--pore", choices=["r9", "r10", "rna004"], default=None, help="pore chemistry [auto] (only r9 is served yet)")
     p.add_argument("--ckpt", type=int, default=512, help="reference padding stride [512]")
     p.add_argument("--mesh", default=None, metavar="DPxTP", help="device mesh (not served yet)")
+    p.add_argument("--trace", default=None, metavar="DIR", help="write a profiler trace of the run to DIR (not served yet)")
+    p.add_argument("--shard", default=None, metavar="I/N", help="map only record stripe I of N (not served yet)")
+    p.add_argument("--hosts", type=int, default=None, metavar="N", help="number of hosts in the cluster (not served yet)")
+    p.add_argument("--host-id", type=int, default=None, metavar="I", help="this process's id, 0..N-1 (not served yet)")
+    p.add_argument("--coordinator", default=None, metavar="ADDR:PORT", help="host 0's coordination address (not served yet)")
     p.add_argument("--device", default="cuda", help="torch device: cuda (the CUDA kernels) or cpu (their plain PyTorch versions) [cuda]")
     return p
 
@@ -98,7 +108,20 @@ def dtw_main(argv: list[str]) -> int:
     if args.threads < 1:
         p.error(f"Number of threads should larger than 0. You entered {args.threads}")
 
-    from .runtime.pipeline import Core, Options, run_dtw
+    from .runtime.pipeline import Core, Options, _later, run_dtw
+
+    for flag, value in (("--accel", args.accel), ("--engine", args.engine)):
+        if value is not None:
+            raise ValueError(
+                f"{flag} chooses among the JAX package's engines; this port picks "
+                "its path with --device (cuda: the CUDA kernels, cpu: their plain "
+                "PyTorch versions)"
+            )
+    if args.trace is not None:
+        raise _later("--trace", "trace")
+    for flag in ("shard", "hosts", "host_id", "coordinator"):
+        if getattr(args, flag) is not None:
+            raise _later("--" + flag.replace("_", "-"), "hosts")
 
     opt = Options(
         batch_size=args.batchsize,
@@ -161,6 +184,7 @@ def main(argv: list[str] | None = None) -> int:
             "Usage: python -m sigfish_tpu_torch.cli <command> [options]\n\n"
             "command:\n"
             "         dtw          Map raw signals to a reference via subsequence DTW\n"
+            "         eval         Evaluate a mapping against a truth set (not served yet)\n"
             "         --version    Print version\n"
         )
         return 0 if argv else 1
@@ -168,6 +192,11 @@ def main(argv: list[str] | None = None) -> int:
     if cmd in ("--version", "-V"):
         print(f"sigfish_tpu_torch {__version__}")
         return 0
+    if cmd == "eval":
+        from .runtime.pipeline import _later
+
+        log_error(str(_later("the eval command", "eval")))
+        return 1
     if cmd != "dtw":
         sys.stderr.write(f"[main] Unknown command {cmd}\n")
         return 1

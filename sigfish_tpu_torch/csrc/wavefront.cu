@@ -47,8 +47,8 @@
 //   a step for Q=256 (8 rows a lane), and two warps per read on half the
 //   rows each gain about 10% in the one-shot mode (PERF.md; the carry
 //   mode's numbers are below).
-// - At small B (the chunked route's clip groups: 16 reads over 9.28M
-//   diagonals) most of the card idles and each read's chain is the whole
+// - At small B (16 reads over 9.28M diagonals, a batch of clipped reads
+//   on a bacterial reference) most of the card idles and each read's chain is the whole
 //   time. Splitting its rows over more warps shortens every step: ~100
 //   cycles at 4 warps per read (2 rows a lane) against ~200 at one. Eight
 //   warps (1 row a lane) put two warps on a scheduler and gain less.
@@ -502,7 +502,7 @@ wavefront_kernel(const float* __restrict__ queries,    // (B, Q)
       // whole group run one at a time below.
       const int whole = CARRY ? steps & ~3 : steps;
       // two groups a loop at 4 warps per read and 2 or more rows a lane
-      // (the clip groups' instance): about 10% faster there; slower at 2
+      // (the 16-row instance): about 10% faster there; slower at 2
       // and 8 warps, and it spills at 1 row a lane
 #pragma unroll(WARPS == 4 && ROWS > 1 ? 2 : 1)
       for (int k0 = 0; k0 < whole; k0 += 4) {

@@ -305,8 +305,10 @@ def sdtw_wavefront_carry(
     s+1..Q-1, all of ywin and rswin). The rest, rows below s, no row >= s
     ever reads, so a chain may mix warp counts from launch to launch.
     CPU tensors run wavefront_plain; CUDA tensors launch the kernel's
-    carry mode, counted in sdtw_wavefront_carry.launches and per warp
-    count in sdtw_wavefront_carry.launches_by_warps, or raise."""
+    carry mode, counted in sdtw_wavefront_carry.launches, per warp count
+    in sdtw_wavefront_carry.launches_by_warps and, when start lanes are
+    given (the instance without FS0), in
+    sdtw_wavefront_carry.launches_start_lanes, or raise."""
     _check(queries, ypad, rspad, lane, start_lanes)
     B, Q = queries.shape
     _check_warps("sdtw_wavefront_carry", warps, Q)
@@ -352,11 +354,13 @@ def sdtw_wavefront_carry(
         raise RuntimeError(f"sdtw_wavefront_carry: CUDA launch failed (cudaError {err})")
     sdtw_wavefront_carry.launches += 1
     sdtw_wavefront_carry.launches_by_warps[warps] += 1
+    sdtw_wavefront_carry.launches_start_lanes += sl is not None
     return (out, *state_out)
 
 
 sdtw_wavefront_carry.launches = 0
 sdtw_wavefront_carry.launches_by_warps = dict.fromkeys(WARPS, 0)
+sdtw_wavefront_carry.launches_start_lanes = 0
 
 _lib: ctypes.CDLL | None = None
 

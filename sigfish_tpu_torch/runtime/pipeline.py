@@ -16,8 +16,7 @@ with its names and order kept:
                        Past CHUNK_AUTO_COLS reference columns (or with
                        --ref-chunk N > 0) the reference streams through
                        the kernel's carry mode in segments instead
-                       (ops/chunked_ref.py), and clipped reads go through
-                       the one-shot kernel in small row groups
+                       (ops/chunked_ref.py), clipped reads included
   backtrack/
   output        host   winner path recompute + PAF lines in batch order
 
@@ -49,12 +48,16 @@ from ..io.blow5 import Slow5File, Slow5Record
 from ..io.fasta import read_fasta
 from ..models.genref import RefSynth, gen_ref
 from ..models.pore_model import MODEL_ID_DNA_R9, load_builtin_model, read_model_tsv
-from ..ops.candidates import compute_mapq, window_argmin
+from ..ops.candidates import compute_mapq
 from ..ops.candidates_dev import topk_candidates, window_top5
 from ..ops.chunked_ref import (
     CHUNK_AUTO_COLS,
+    ClipFold,
+    WindowFold,
+    carry_chain,
+    clip_window_bases,
     prepare_chunked_inputs,
-    sdtw_wavefront_chunked_top5,
+    prepare_clip_inputs,
 )
 from ..ops.events import DNA_PARAMS, get_events, get_events_prefix
 from ..ops.layout import (
@@ -64,24 +67,11 @@ from ..ops.layout import (
     prepare_wavefront_inputs,
     shift_queries_for_clip,
     unpack_top5,
-    wavefront_diags,
 )
-from ..ops.sdtw_ref import subsequence_cost, subsequence_cost_seeded, subsequence_path
+from ..ops.sdtw_ref import subsequence_cost_seeded, subsequence_path
 from ..ops.sdtw_wavefront import sdtw_wavefront
 from ..output import paf_line
 from ..utils import log_info, log_warning
-
-# chunked-reference mode: byte budget for serving a batch's CLIPPED reads
-# through the one-shot kernel, as the JAX package sizes it. A group holds
-# three (rows, D)-sized buffers at peak (the scores, the clip pass's row
-# take and its column slice), so rows = budget // (12 * D), rounded down
-# to a power of two: 16-row groups at 9.3M columns. One group is
-# submitted at a time across batches (Core._oneshot_lock), though run_dtw
-# double-buffers and submits one batch's later groups beside the next
-# batch's group 0. A budget below one row sends the
-# clipped reads to the exact host per-read DP (Core._clipped_top5) on
-# device="cpu", and raises on the card, which does no work on the host.
-_CLIP_ONESHOT_BYTES = 2 << 30
 
 # what brings each option that this slice does not serve (ROADMAP.md,
 # queue 1)
@@ -96,7 +86,9 @@ _LATER = {
     "pore": "item 7 (R10 and RNA004 chemistries)",
     "host_stages": "item 10 (--host-stages device)",
     "mesh": "item 11 (multi-GPU mesh)",
-    "clip_rows": "'Clipped reads past ~179M columns' (a chunked clip path on the card)",
+    "trace": "item 6 (--trace, a torch.profiler trace)",
+    "hosts": "item 12 (multi-host: --shard, --hosts, --host-id, --coordinator)",
+    "eval": "item 8 (the eval subcommand)",
 }
 
 
@@ -292,20 +284,20 @@ class Core:
         self._wf_cache: dict[int, tuple[torch.Tensor, torch.Tensor, int]] = {}
         # chunked-reference segments per (Q, ref_chunk), uploaded once
         self._wf_chunk_cache: dict[tuple[int, int], tuple] = {}
+        # the clip fold's window numbering per qlen (clip_window_bases)
+        self._clip_bases: dict[int, tuple[np.ndarray, int]] = {}
         # how many times each device route ran: "oneshot" (sub-)batches,
-        # "chunked" folds, "clip_groups" (the chunked route's one-shot
-        # clip groups) and "clip_host" (clipped reads served on the host).
-        # Clip groups are also submitted from run_dtw's drain thread.
-        self.routes = {"oneshot": 0, "chunked": 0, "clip_groups": 0, "clip_host": 0}
+        # "chunked" carry chains, "clip_fold" batches whose clipped rows
+        # the chunked route's clip fold served
+        self.routes = {"oneshot": 0, "chunked": 0, "clip_fold": 0}
         self._routes_lock = threading.Lock()
         # --profile-cpu on the card: CUDA event pairs around each route's
         # device work, read by span_seconds once the run has drained
-        self.spans = {"oneshot": [], "chunked": [], "clip_groups": []}
-        # one one-shot submission at a time: run_dtw's drain thread submits
-        # a batch's later clip groups while the main thread submits the next
-        # batch's group 0, and each holds its (rows, D) buffers until its
-        # launches are queued. The device runs them in turn on one stream
-        # either way; without the lock their buffers may meet.
+        self.spans = {"oneshot": [], "chunked": []}
+        # one one-shot submission at a time: each holds its (rows, D)
+        # buffers until its launches are queued, and callers on several
+        # threads (force_oneshot) would otherwise hold them all at once.
+        # The device runs them in turn on one stream either way.
         self._oneshot_lock = threading.Lock()
 
         # counters (ref core_t)
@@ -364,8 +356,7 @@ class Core:
         return sum(a.elapsed_time(b) for a, b in self.spans[route]) / 1e3
 
     def sdtw_candidates_collect(self, handle: dict) -> tuple[np.ndarray, np.ndarray]:
-        """Wait for a submitted batch's results and unpack them; run the
-        chunked route's clip groups (one at a time) or host clip DPs."""
+        """Wait for a submitted batch's results and unpack them."""
         if "parts" in handle:
             outs = [self.sdtw_candidates_collect(h) for h in handle["parts"]]
             return (
@@ -385,28 +376,6 @@ class Core:
             rows = handle["clip_rows"]
             ts[rows] = cs
             tp[rows] = cp
-        elif "clip_dev" in handle:
-            # chunked route: clipped reads ride the one-shot kernel in
-            # small groups, submitted one at a time -- group i+1 only
-            # after group i's results are read and its buffers released,
-            # which bounds the device memory of clip groups per batch
-            for ent in handle["clip_dev"]:
-                grp, sub, qb_c, qlens_c = ent
-                if sub is None:
-                    sub = self.sdtw_candidates_submit(qb_c, qlens_c, force_oneshot=True)
-                cs, cp = self.sdtw_candidates_collect(sub)
-                ent[1] = ent[2] = ent[3] = None  # release the group's buffers
-                del sub
-                ts[grp] = cs[: grp.size]
-                tp[grp] = cp[: grp.size]
-        elif "clip_host" in handle:
-            # chunked route, when not even one one-shot row fits the clip
-            # budget: the exact host per-read DP, possibly as futures
-            for i, r in enumerate(handle["clip_rows"]):
-                res = handle["clip_host"][i]
-                s5, p5 = res.result() if hasattr(res, "result") else res
-                ts[r] = s5
-                tp[r] = p5
         return ts, tp
 
     def _clip_pass(
@@ -440,8 +409,8 @@ class Core:
 
         Routing (that of the JAX package): ref_chunk > 0 always takes
         the chunked route, 0 takes it once R + Q passes CHUNK_AUTO_COLS,
-        -1 never does. force_oneshot bypasses it: the chunked route
-        serves its clip groups through the one-shot kernel this way."""
+        -1 never does. force_oneshot takes the one-shot route whatever
+        the reference's length (to compare the two routes)."""
         B, Q = qb.shape
         if B > self.DEVICE_CHUNK:
             C = self.DEVICE_CHUNK
@@ -468,7 +437,7 @@ class Core:
             fs_dev = torch.from_numpy(fs_lanes).to(self.device)
         else:
             qb_k, fs_dev = qb, None
-        with self._oneshot_lock, self._span("clip_groups" if force_oneshot else "oneshot"):
+        with self._oneshot_lock, self._span("oneshot"):
             scores = sdtw_wavefront(
                 torch.from_numpy(qb_k).to(self.device), ypad, rspad,
                 lane=W - 1, start_lanes=fs_dev,
@@ -480,136 +449,69 @@ class Core:
             self._clip_pass(handle, scores, qlens, R, W)
         return handle
 
+    def _chunk_inputs(self, Q: int) -> tuple:
+        """The chunked route's segment buffers for a Q-wide batch (those of
+        prepare_chunked_inputs and prepare_clip_inputs), on the device for
+        the life of the Core: (ypad_seg, rspad_seg, valid_seg, track_seg,
+        local_seg, nwin_tot)."""
+        key = (Q, self.opt.ref_chunk)
+        if key not in self._wf_chunk_cache:
+            W = self.opt.query_size
+            target = self.opt.ref_chunk if self.opt.ref_chunk > 0 else 32768
+            yps, rps, vs, Ds, nwin_tot = prepare_chunked_inputs(
+                self.ref_cat, self.reset, self.valid_host, Q, W, target=target
+            )
+            ts, ls = prepare_clip_inputs(self.track_offsets, self.track_sizes, W, vs.shape[0], Ds)
+            self._wf_chunk_cache[key] = tuple(
+                torch.from_numpy(a).to(self.device) for a in (yps, rps, vs, ts, ls)
+            ) + (nwin_tot,)
+        return self._wf_chunk_cache[key]
+
     def _chunked_candidates_submit(
         self, qb: np.ndarray, qlens: np.ndarray, clip_rows: np.ndarray
     ) -> dict:
         """The chunked-reference route (ops/chunked_ref.py): the carry
-        kernel streams the reference in segments and folds each into a
-        per-window accumulator, so the (B, D) score buffer never exists.
-        Bit-identical to the one-shot kernel + window_top5.
+        kernel streams the reference in segments and folds each into
+        per-window accumulators, so no (rows, D) score buffer ever
+        exists, at any reference size. Bit-identical to the one-shot
+        route (the kernel, window_top5 and the clip pass).
 
-        Clipped reads (qlen != W) use per-read window grids that do not
-        fold across segments. They go through the one-shot kernel and
-        the device clip pass in groups of rows sized to
-        _CLIP_ONESHOT_BYTES: a (rows, D) buffer is affordable because
-        clipped reads are few. Only group 0 is submitted here; collect
-        submits the rest one at a time. When not even one row fits the
-        budget, the exact host per-read DP (_clipped_top5) serves them
-        on the thread pool on device="cpu"; on the card that raises, since
-        the card's run does no work on the host."""
+        Clipped reads (qlen != W) are shifted in place by
+        shift_queries_for_clip and ride the batch's chain, whose every
+        launch then takes their start lanes (full-length rows keep lane 0
+        and their bits); their per-read window fold (ClipFold) reads their
+        rows of each segment beside the W-window fold of the full-length
+        rows. A batch whose every live row is clipped runs the clip fold
+        alone."""
         W = self.opt.query_size
         B, Q = qb.shape
-        clip_host = None
-        clip_dev = None
+        dev = self.device
+        yps, rps, vs, ts, ls, nwin_tot = self._chunk_inputs(Q)
+        handle = dict(packed=None, B=B)
+        window = clip = sl_dev = None
+        if clip_rows.size < int(np.count_nonzero(qlens > 0)):
+            window = WindowFold(B, vs, W, nwin_tot)
         if clip_rows.size:
-            D_one = wavefront_diags(self.ref_cat.shape[0], Q)  # the one-shot D
-            max_rows = int(_CLIP_ONESHOT_BYTES // (3 * 4 * D_one))
-            pw = 1
-            while pw * 2 <= max_rows:
-                pw *= 2
-            if max_rows >= 1:
-                clip_dev = []
-                for o in range(0, clip_rows.size, pw):
-                    grp = clip_rows[o : o + pw]
-                    bc = 1
-                    while bc < grp.size:
-                        bc *= 2
-                    qb_c = np.zeros((bc, Q), dtype=qb.dtype)
-                    qb_c[: grp.size] = qb[grp]
-                    qlens_c = np.full(bc, W, dtype=qlens.dtype)
-                    qlens_c[: grp.size] = qlens[grp]
-                    sub = None
-                    if o == 0:
-                        sub = self.sdtw_candidates_submit(qb_c, qlens_c, force_oneshot=True)
-                        qb_c = qlens_c = None
-                    clip_dev.append([grp, sub, qb_c, qlens_c])
-                self._count_route("clip_groups", len(clip_dev))
-            elif self.device.type != "cpu":
-                raise _later(
-                    f"a clipped read against a reference whose one-shot row of "
-                    f"{D_one} diagonals passes the clip budget "
-                    f"({_CLIP_ONESHOT_BYTES} bytes)", "clip_rows",
-                )
-            else:
-                queries = [qb[r, : int(qlens[r])].copy() for r in clip_rows]
-                if self._pool is not None:
-                    clip_host = [self._pool.submit(self._clipped_top5, q) for q in queries]
-                else:
-                    clip_host = [self._clipped_top5(q) for q in queries]
-                self._count_route("clip_host", len(queries))
-        if clip_rows.size and clip_rows.size == int(np.count_nonzero(qlens > 0)):
-            # every live row is clipped: the main fold's results would all
-            # be overwritten at collect, so it is skipped
-            packed = None
-        else:
-            self._count_route("chunked")
-            key = (Q, self.opt.ref_chunk)
-            if key not in self._wf_chunk_cache:
-                target = self.opt.ref_chunk if self.opt.ref_chunk > 0 else 32768
-                yps, rps, vs, _, nwin_tot = prepare_chunked_inputs(
-                    self.ref_cat, self.reset, self.valid_host, Q, W, target=target
-                )
-                self._wf_chunk_cache[key] = (
-                    torch.from_numpy(yps).to(self.device),
-                    torch.from_numpy(rps).to(self.device),
-                    torch.from_numpy(vs).to(self.device),
-                    nwin_tot,
-                )
-            yps, rps, vs, nwin_tot = self._wf_chunk_cache[key]
-            with self._span("chunked"):
-                packed = _start_host_copy(sdtw_wavefront_chunked_top5(
-                    torch.from_numpy(qb).to(self.device), yps, rps, vs,
-                    lane=W - 1, W=W, nwin_tot=nwin_tot,
-                ))
-        handle = dict(packed=packed, B=B)
-        if clip_rows.size:
+            self._count_route("clip_fold")
             handle["clip_rows"] = clip_rows
-            if clip_dev is not None:
-                handle["clip_dev"] = clip_dev
-            else:
-                handle["clip_host"] = clip_host
+            qb, sl = shift_queries_for_clip(qb, qlens, W - 1)
+            sl_dev = torch.from_numpy(sl).to(dev)
+            bases, n_win = clip_window_bases(self.track_sizes, qlens[clip_rows], self._clip_bases)
+            clip = ClipFold(
+                torch.from_numpy(clip_rows).to(dev), torch.from_numpy(qlens[clip_rows]).to(dev),
+                torch.from_numpy(bases).to(dev), n_win, ts, ls, vs, W,
+            )
+        folds = [f for f in (window, clip) if f is not None]
+        if not folds:
+            return handle
+        self._count_route("chunked")
+        with self._span("chunked"):
+            carry_chain(torch.from_numpy(qb).to(dev), yps, rps, W - 1, folds, sl_dev)
+            if window is not None:
+                handle["packed"] = _start_host_copy(window.top5())
+            if clip is not None:
+                handle["clip_packed"] = _start_host_copy(clip.top5())
         return handle
-
-    def _clipped_top5(self, query: np.ndarray):
-        """Exact last row over every track for one clipped read (native
-        two-row DP; Python-oracle fallback), then the host window scan."""
-        from .. import native
-
-        R = self.ref_cat.shape[0]
-        lr = np.full(R, np.float32(3.0e38))
-        for lo, size in zip(self.track_offsets[:-1], self.track_sizes):
-            lo = int(lo)
-            if not size:
-                continue
-            track = self.ref_cat[lo : lo + size]
-            row = native.subsequence_lastrow(query, track)
-            if row is None:
-                row = np.asarray(subsequence_cost(query, track))[-1]
-            lr[lo : lo + size] = row
-        return self._host_top5(lr, query.size)
-
-    def _host_top5(self, lr_row: np.ndarray, qlen: int):
-        """Window scan + update_aln top-5 for one read (exact reference
-        semantics, any window width)."""
-        cand_s: list[float] = []
-        cand_p: list[int] = []
-        for t in range(len(self.track_sizes)):
-            lo = int(self.track_offsets[t])
-            size = self.track_sizes[t]
-            mins, args = window_argmin(lr_row[lo : lo + size], qlen)
-            cand_s.extend(mins.tolist())
-            cand_p.extend((args + lo).tolist())
-        s = np.asarray(cand_s, dtype=np.float32)
-        p = np.asarray(cand_p, dtype=np.int64)
-        out_s = np.full(5, np.float32(3.0e38))
-        out_p = np.full(5, -1, dtype=np.int64)
-        for k in range(min(5, s.size)):
-            rev = s[::-1]
-            best = s.size - 1 - int(np.argmin(rev))  # later wins ties
-            out_s[k] = s[best]
-            out_p[k] = p[best]
-            s[best] = np.float32(np.inf)
-        return out_s, out_p
 
     def close(self) -> None:
         self.sf.close()

@@ -23,16 +23,17 @@ import torch
 
 import jax.numpy as jnp
 
-from sigfish_tpu.ops.candidates_dev import device_window_top5
+from sigfish_tpu.ops.candidates_dev import device_topk_candidates, device_window_top5
 from sigfish_tpu.ops.chunked_ref import (
     prepare_chunked_inputs as jax_prepare_chunked,
     sdtw_wavefront_chunked_top5 as jax_chunked_top5,
 )
+from sigfish_tpu.ops.sdtw_pallas import sdtw_wavefront as jax_wavefront
 from sigfish_tpu.ops.sdtw_pallas import sdtw_wavefront_carry as jax_carry
 from sigfish_tpu_torch.ops import chunked_ref as cr
 from sigfish_tpu_torch.ops import layout
 from sigfish_tpu_torch.ops import sdtw_wavefront as wf
-from sigfish_tpu_torch.ops.candidates_dev import window_top5
+from sigfish_tpu_torch.ops.candidates_dev import BIG, topk_candidates, window_top5
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TD = 32  # the JAX kernel's tile in these tests
@@ -222,6 +223,163 @@ def test_chunked_top5_bitwise_vs_pallas(seed):
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(np.asarray(jone)))
 
 
+# ------------------------------------------------------------ clip fold
+
+W_CLIP = 48
+TD_CLIP = 96  # chunk_segment_diags(48, target=96): segments of 96 diagonals
+
+
+def _clip_case(seed, qset, sizes=None):
+    """Several tracks, one of them (a contig, not the first) shorter than
+    every qlen but 1, and a batch of full-length reads and clipped reads of the qlens in
+    `qset`, shifted for the kernel. Returns a dict of the host arrays."""
+    W = W_CLIP
+    rng = np.random.default_rng(seed)
+    if sizes is None:
+        sizes = [int(x) for x in rng.integers(40, 260, size=4)]
+        sizes[int(rng.integers(1, 4))] = 5
+    tracks = [rng.standard_normal(n).astype(np.float32) for n in sizes]
+    long = [t for t in tracks[1:] if t.size >= 30]
+    if long:
+        long[0][:30] = tracks[0][:30]  # equal costs in several windows
+    ref, reset, offsets = layout.pad_tracks(tracks, ckpt=32, align=W)
+    R = ref.shape[0]
+    u, valid = layout.build_column_maps(offsets, R, track_sizes=sizes)
+    qlens = [W, *qset, W, *qset[::-1]]
+    qlist = [rng.standard_normal(n).astype(np.float32) for n in qlens]
+    qlist[1] = tracks[0][: qlens[1]].copy()
+    qb, qlens, _ = layout.make_query_batch(qlist, pad_q=64)
+    qb_k, fs = layout.shift_queries_for_clip(qb, qlens, W - 1)
+    yps, rps, vs, Ds, nwin = cr.prepare_chunked_inputs(ref, reset, valid, 64, W, target=TD_CLIP)
+    ts, ls = cr.prepare_clip_inputs(offsets, sizes, W, vs.shape[0], Ds)
+    rows = np.where((qlens > 0) & (qlens != W))[0]
+    return dict(ref=ref, reset=reset, R=R, u=u, valid=valid, sizes=sizes, qb=qb, qlens=qlens,
+                qb_k=qb_k, fs=fs, yps=yps, rps=rps, vs=vs, Ds=Ds, nwin=nwin, ts=ts, ls=ls,
+                rows=rows)
+
+
+def _clip_fold(c, rows=None):
+    """A ClipFold over the case's clipped rows (read at `rows` of the
+    chain, by default their own rows)."""
+    r = c["rows"]
+    bases, n_win = cr.clip_window_bases(c["sizes"], c["qlens"][r])
+    return cr.ClipFold(
+        torch.from_numpy(r if rows is None else rows), torch.from_numpy(c["qlens"][r]),
+        torch.from_numpy(bases), n_win, torch.from_numpy(c["ts"]), torch.from_numpy(c["ls"]),
+        torch.from_numpy(c["vs"]), W_CLIP)
+
+
+def _fold_blocks(fold, lastrow_diag, c):
+    """Feed a fold the segments of a diagonal-indexed (B, D) score row,
+    one (B, Ds) block at a time (diagonals past D score BIG)."""
+    S, Ds = c["vs"].shape
+    full = torch.full((lastrow_diag.shape[0], S * Ds), BIG)
+    n = min(S * Ds, lastrow_diag.shape[1])
+    full[:, :n] = lastrow_diag[:, :n]
+    for s in range(S):
+        fold.update(s, full[:, s * Ds : (s + 1) * Ds])
+    return fold.top5()
+
+
+def _topk_both(lr, c):
+    """topk_candidates(reindex=False, pack=True) of the clipped rows'
+    (n, R) last rows, the port's and the JAX package's, as int32 bits."""
+    r, R = c["rows"], c["R"]
+    port = topk_candidates(torch.from_numpy(lr), torch.from_numpy(c["qlens"][r]),
+                           torch.from_numpy(c["u"]), torch.from_numpy(c["valid"]), R,
+                           reindex=False, pack=True)
+    jax = device_topk_candidates(
+        jnp.asarray(lr), jnp.asarray(c["qlens"][r]), jnp.asarray(c["u"]),
+        jnp.asarray(c["valid"]), R, W=W_CLIP, k=5, reindex=False, pack=True)
+    return _bits(port.numpy()), _bits(np.asarray(jax))
+
+
+@pytest.mark.parametrize("qset", [(7, 25, W_CLIP - 1, 31), (29, 7, 16, 25, W_CLIP - 1, 1)])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_clip_fold_bitwise_vs_topk_candidates(seed, qset):
+    """The clip fold equals topk_candidates over the one-shot row, bit for
+    bit, the port's and the JAX package's: fed the JAX kernel's one-shot
+    scores (interpret mode) segment by segment, and inside the carry
+    chain beside the W-window fold. qlens 7, 25, W-1 and 31 or 29 (which
+    divide neither W=48 nor Ds=96), a contig shorter than qlen."""
+    c = _clip_case(seed, qset)
+    S, Ds = c["vs"].shape
+    assert S >= 3 and min(c["sizes"]) < min(q for q in qset if q > 1)
+    W, R, r = W_CLIP, c["R"], c["rows"]
+    ypad, rspad, _ = layout.prepare_wavefront_inputs(c["ref"], c["reset"], 64)
+    one = np.asarray(jax_wavefront(
+        jnp.asarray(c["qb_k"]), jnp.asarray(ypad), jnp.asarray(rspad), lane=W - 1, td=32,
+        unroll=4, interpret=True, start_lanes=jnp.asarray(c["fs"])))
+    port_want, jax_want = _topk_both(np.ascontiguousarray(one[r, W - 1 : W - 1 + R]), c)
+    np.testing.assert_array_equal(port_want, jax_want)
+
+    got = _fold_blocks(_clip_fold(c, rows=np.arange(r.size)), torch.from_numpy(one[r]), c)
+    np.testing.assert_array_equal(_bits(got.numpy()), port_want)
+
+    fold = _clip_fold(c)
+    window = cr.WindowFold(c["qb"].shape[0], torch.from_numpy(c["vs"]), W, c["nwin"])
+    cr.carry_chain(torch.from_numpy(c["qb_k"]), torch.from_numpy(c["yps"]),
+                   torch.from_numpy(c["rps"]), W - 1, [window, fold], torch.from_numpy(c["fs"]))
+    np.testing.assert_array_equal(_bits(fold.top5().numpy()), port_want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_clip_fold_planted_ties(seed):
+    """Small-integer scores full of ties, with equal minima planted on
+    both sides of every segment boundary and at both edges of windows,
+    and reads (qlen 47 on tracks of 60 and 5 columns: 2 + 1 windows) with
+    fewer than k real windows: the fold equals both packages' topk_candidates."""
+    c = _clip_case(seed, (7, 25, W_CLIP - 1, 31), sizes=[60, 5] if seed == 2 else None)
+    S, Ds = c["vs"].shape
+    W, R, r = W_CLIP, c["R"], c["rows"]
+    rng = np.random.default_rng(seed + 40)
+    diag = rng.integers(1, 4, size=(r.size, S * Ds)).astype(np.float32)
+    for s in range(1, S):
+        diag[:, s * Ds - 2 : s * Ds + 2] = 0.0  # the boundary's last and first columns
+    for b, q in enumerate(c["qlens"][r]):
+        diag[b, W - 1 :: int(q)] = 0.0  # every window's first column ...
+        diag[b, W - 2 + int(q) :: int(q)] = 0.0  # ... and its last
+    port_want, jax_want = _topk_both(np.ascontiguousarray(diag[:, W - 1 : W - 1 + R]), c)
+    np.testing.assert_array_equal(port_want, jax_want)
+    got = _fold_blocks(_clip_fold(c, rows=np.arange(r.size)), torch.from_numpy(diag), c)
+    np.testing.assert_array_equal(_bits(got.numpy()), port_want)
+    if seed == 2:
+        pos = got.numpy()[:, 5:].view(np.int32)
+        few = c["qlens"][r] == W - 1
+        assert (pos[few, 3:] == -1).all() and (pos[few, :3] >= 0).all(), "3 real windows"
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_full_rows_unchanged_beside_clipped_rows(seed):
+    """Layout (a): the clipped rows share the batch's chain, whose every
+    launch then takes start lanes (full-length rows at lane 0). The
+    full-length rows' packed W-window results equal, bit for bit, those
+    of a chain of full-length rows alone without start lanes."""
+    c = _clip_case(seed, (7, 25, W_CLIP - 1, 31))
+    W = W_CLIP
+    full = np.where(c["qlens"] == W)[0]
+    vs = torch.from_numpy(c["vs"])
+    mixed = cr.WindowFold(c["qb"].shape[0], vs, W, c["nwin"])
+    cr.carry_chain(torch.from_numpy(c["qb_k"]), torch.from_numpy(c["yps"]),
+                   torch.from_numpy(c["rps"]), W - 1, [mixed, _clip_fold(c)],
+                   torch.from_numpy(c["fs"]))
+    alone = cr.sdtw_wavefront_chunked_top5(
+        torch.from_numpy(c["qb"][full]), torch.from_numpy(c["yps"]), torch.from_numpy(c["rps"]),
+        vs, W - 1, W, c["nwin"])
+    np.testing.assert_array_equal(_bits(mixed.top5().numpy()[full]), _bits(alone.numpy()))
+
+
+def test_clip_window_bases_cache():
+    """The window numbering per qlen: ceil(len / qlen) windows per track,
+    numbered in track order; a cached qlen returns the same numbering."""
+    cache = {}
+    bases, most = cr.clip_window_bases([10, 3, 0, 7], np.array([4, 3, 4], np.int32), cache)
+    np.testing.assert_array_equal(bases, [[0, 3, 4, 4], [0, 4, 5, 5], [0, 3, 4, 4]])
+    assert most == 8 and sorted(cache) == [3, 4]
+    again, _ = cr.clip_window_bases([10, 3, 0, 7], np.array([3], np.int32), cache)
+    np.testing.assert_array_equal(again, bases[1:2])
+
+
 # ---------------------------------------------------------------- pipeline
 
 W_PIPE = 64
@@ -288,14 +446,16 @@ def oneshot_paf(workload):
 def test_chunked_pipeline_paf_vs_jax(workload, oneshot_paf, clip_budget, monkeypatch):
     """Forced small segments: the port's PAF equals the JAX package's
     (pallas engine, same forced chunking) and the port's one-shot PAF.
-    clip_budget None serves clipped reads through one-shot clip groups,
-    0 through the host per-read DP."""
+    The JAX package serves its clipped reads through one-shot clip groups
+    at its default clip budget (None) and through its host per-read DP at
+    0; the port serves them through the carry chain's clip fold either
+    way, with no one-shot launch."""
     from sigfish_tpu.runtime import pipeline as jpl
     from sigfish_tpu_torch.runtime import pipeline as tpl
 
     if clip_budget is not None:
         monkeypatch.setattr(jpl, "_CLIP_ONESHOT_BYTES", clip_budget)
-        monkeypatch.setattr(tpl, "_CLIP_ONESHOT_BYTES", clip_budget)
+    monkeypatch.setattr(tpl, "sdtw_wavefront", _no_oneshot)
     fa, bl = workload
     Ds = cr.chunk_segment_diags(W_PIPE, target=256)
     assert 2 * (N_BASES + 1 - 6) + 128 > 2 * Ds, "want >= 2 segments"
@@ -303,11 +463,7 @@ def test_chunked_pipeline_paf_vs_jax(workload, oneshot_paf, clip_budget, monkeyp
     before = wf.sdtw_wavefront_carry.launches
     got, routes = _run_port(fa, bl, ref_chunk=256)
     assert wf.sdtw_wavefront_carry.launches == before  # the CPU runs the plain version
-    assert routes["chunked"] > 0
-    if clip_budget is None:
-        assert routes["clip_groups"] > 0 and routes["clip_host"] == 0
-    else:
-        assert routes["clip_host"] > 0 and routes["clip_groups"] == 0
+    assert routes["chunked"] > 0 and routes["clip_fold"] > 0 and routes["oneshot"] == 0
 
     jcore = jpl.Core(fa, bl, jpl.Options(engine="pallas", num_thread=2, ref_chunk=256,
                                          query_size=W_PIPE, batch_size=8))
@@ -321,17 +477,20 @@ def test_chunked_pipeline_paf_vs_jax(workload, oneshot_paf, clip_budget, monkeyp
     assert len(ids) >= 6
 
 
-def test_chunked_batch_of_clipped_reads_only(workload):
-    """A batch whose every live row is clipped skips the main fold; its
-    clip groups alone give the one-shot route's candidates."""
-    from sigfish_tpu_torch.runtime.pipeline import Core, Options
+def test_chunked_batch_of_clipped_reads_only(workload, monkeypatch):
+    """A batch whose every live row is clipped runs one chain with start
+    lanes and the clip fold alone (no W-window fold); it gives the
+    one-shot route's candidates."""
+    from sigfish_tpu_torch.runtime import pipeline as tpl
 
-    core = Core(*workload, Options(query_size=W_PIPE, device="cpu", ref_chunk=256))
+    seen = _spy_chains(tpl, monkeypatch)
+    core = tpl.Core(*workload, tpl.Options(query_size=W_PIPE, device="cpu", ref_chunk=256))
     rng = np.random.default_rng(11)
     qlist = [rng.standard_normal(n).astype(np.float32) for n in (20, W_PIPE - 1, 33, 7)]
     qb, qlens, _ = layout.make_query_batch(qlist, pad_q=core.pad_q)
     got = core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens))
-    assert core.routes["chunked"] == 0 and core.routes["clip_groups"] == 1
+    assert core.routes == {"oneshot": 0, "chunked": 1, "clip_fold": 1}
+    assert seen == [(4, True, ["ClipFold"])]
     want = core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens, force_oneshot=True))
     core.close()
     for g, w in zip(got, want):
@@ -339,12 +498,50 @@ def test_chunked_batch_of_clipped_reads_only(workload):
     assert (got[1][:, 0] >= 0).all()
 
 
+def _spy_chains(tpl, monkeypatch) -> list:
+    """Record (rows, start lanes given, fold types) of each carry chain
+    the pipeline runs."""
+    seen = []
+    real = tpl.carry_chain
+
+    def spy(queries, ypad_seg, rspad_seg, lane, folds, start_lanes=None):
+        seen.append((queries.shape[0], start_lanes is not None,
+                     [type(f).__name__ for f in folds]))
+        return real(queries, ypad_seg, rspad_seg, lane, folds, start_lanes)
+
+    monkeypatch.setattr(tpl, "carry_chain", spy)
+    return seen
+
+
+@pytest.mark.parametrize("num_thread", [1, 2])
+def test_chunked_clipped_rows_ride_the_batch_chain(workload, oneshot_paf, num_thread, monkeypatch):
+    """The clipped rows ride the batch's own chain (every launch with
+    start lanes, both folds) and map the one-shot route's bytes, with the
+    host stages serial or overlapped; each batch with clipped rows
+    counts once."""
+    from sigfish_tpu_torch.runtime import pipeline as tpl
+
+    monkeypatch.setattr(tpl, "sdtw_wavefront", _no_oneshot)
+    seen = _spy_chains(tpl, monkeypatch)
+    core = tpl.Core(*workload, tpl.Options(query_size=W_PIPE, batch_size=8, num_thread=num_thread,
+                                           device="cpu", ref_chunk=256))
+    out = io.StringIO()
+    tpl.run_dtw(core, out)
+    core.close()
+    assert out.getvalue() == oneshot_paf
+    assert core.routes["clip_fold"] == 1 and core.routes["chunked"] == 1
+    assert seen == [(64, True, ["WindowFold", "ClipFold"])]
+
+
+def _no_oneshot(*args, **kw):
+    raise AssertionError("the chunked route launched the one-shot kernel")
+
+
 def test_oneshot_submissions_hold_their_buffers_one_at_a_time(workload, monkeypatch):
-    """run_dtw's drain thread submits a batch's later clip groups while
-    the main thread submits the next batch's first: one one-shot
-    submission at a time runs the kernel and holds its (rows, D) buffers,
-    so two groups' buffers never meet; each thread's candidates are
-    unchanged."""
+    """Threads that submit one-shot batches at once (force_oneshot): one
+    one-shot submission at a time runs the kernel and holds its (rows, D)
+    buffers, so two submissions' buffers never meet; each thread's
+    candidates are unchanged."""
     import threading
     import time
 
@@ -388,25 +585,43 @@ def test_oneshot_submissions_hold_their_buffers_one_at_a_time(workload, monkeypa
 
 
 def test_clip_budget_below_one_row_raises_on_the_card(workload, monkeypatch):
-    """On the card, clipped reads that not even one one-shot row can
-    serve raise (naming the ROADMAP item) instead of running the host
-    DP; on device="cpu" the host DP serves them."""
-    import torch
+    """The chunked route consults no byte budget and raises for no
+    reference size: it holds no buffer as wide as the reference, so a
+    clipped read maps at any size. Every tensor an op makes while it
+    serves a batch of one full-length and one clipped read is narrower
+    than the reference's R columns (the one-shot clip pass's (rows, R)
+    and (rows, D) buffers are not), and its candidates are the one-shot
+    route's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     from sigfish_tpu_torch.runtime import pipeline as tpl
 
-    monkeypatch.setattr(tpl, "_CLIP_ONESHOT_BYTES", 0)
+    assert not hasattr(tpl, "_CLIP_ONESHOT_BYTES") and "clip_rows" not in tpl._LATER
+
+    class Widest(TorchDispatchMode):
+        widest = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.dim():
+                    Widest.widest = max(Widest.widest, max(t.shape))
+            return out
+
     core = tpl.Core(*workload, tpl.Options(query_size=W_PIPE, device="cpu", ref_chunk=256))
+    R = core.ref_cat.shape[0]
     rng = np.random.default_rng(12)
     qlist = [rng.standard_normal(n).astype(np.float32) for n in (W_PIPE, 20)]
     qb, qlens, _ = layout.make_query_batch(qlist, pad_q=core.pad_q)
-    core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens))
-    assert core.routes["clip_host"] == 1
-    core.device = torch.device("cuda")  # the route decides before any tensor moves
-    with pytest.raises(NotImplementedError, match="Clipped reads past"):
-        core.sdtw_candidates_submit(qb, qlens)
-    assert core.routes["clip_host"] == 1
+    core._chunk_inputs(qb.shape[1])  # the reference's own segment buffers, made once
+    with Widest():
+        got = core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens))
+    assert core.routes["clip_fold"] == 1
+    assert 0 < Widest.widest < R, (Widest.widest, R)
+    want = core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens, force_oneshot=True))
     core.close()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_auto_route_past_threshold(workload, oneshot_paf, monkeypatch):

@@ -137,6 +137,44 @@ def test_carry_kernel_chain_mixing_warps(cuda_device, clipped, std):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_clip_fold_on_the_card_vs_cpu(cuda_device, seed):
+    """The chunked route's clip fold (ops/chunked_ref.ClipFold) inside a
+    carry chain on the card, with the W-window fold beside it and every
+    launch counted with start lanes: both folds' packed results equal the
+    same chain's on the CPU (plain versions), bit for bit."""
+    from sigfish_tpu_torch.ops import chunked_ref as cr
+
+    W, Q = 250, 256
+    qb, fs, ypad, rspad, lane = _case(seed + 20, W, Q)
+    rng = np.random.default_rng(seed + 30)
+    sizes = [int(x) for x in rng.integers(2000, 5000, size=4)]
+    sizes[1] = 100  # a contig shorter than most qlens
+    tracks = [rng.standard_normal(n).astype(np.float32) for n in sizes]
+    ref, reset, offsets = layout.pad_tracks(tracks, ckpt=512, align=W)
+    _, valid = layout.build_column_maps(offsets, ref.shape[0], track_sizes=sizes)
+    yps, rps, vs, Ds, nwin = cr.prepare_chunked_inputs(ref, reset, valid, Q, W, target=1000)
+    ts, ls = cr.prepare_clip_inputs(offsets, sizes, W, vs.shape[0], Ds)
+    qlens = np.where(fs > 0, W - fs, W).astype(np.int32)
+    rows = np.where(qlens != W)[0]
+    bases, n_win = cr.clip_window_bases(sizes, qlens[rows])
+
+    def run(dev):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        clip = cr.ClipFold(t(rows), t(qlens[rows]), t(bases), n_win, t(ts), t(ls), t(vs), W)
+        window = cr.WindowFold(qb.shape[0], t(vs), W, nwin)
+        cr.carry_chain(t(qb), t(yps), t(rps), lane, [window, clip], t(fs))
+        return window.top5().view(torch.int32).cpu(), clip.top5().view(torch.int32).cpu()
+
+    before = wf.sdtw_wavefront_carry.launches_start_lanes
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert wf.sdtw_wavefront_carry.launches_start_lanes == before + vs.shape[0] >= before + 3
+    for g, w in zip(got, run("cpu")):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mode", ap.MODES)
 def test_alu_peak_kernel_bitwise_vs_plain(cuda_device, mode):
     x = torch.from_numpy(np.random.default_rng(3).random((40, ap.Q), np.float32)).to(cuda_device)

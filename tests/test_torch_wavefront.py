@@ -409,7 +409,7 @@ def test_wavefront_warps_is_a_built_instance():
 
 
 def test_wavefront_warps_splits_the_clip_groups():
-    """The chunked route's clip groups (16 rows of Q=256) run more than one
+    """A one-shot launch of 16 clipped rows of Q=256 runs more than one
     warp per read."""
     assert wf.wavefront_warps(16, 256) > 1
 
