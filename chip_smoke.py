@@ -5,15 +5,18 @@
 
 Run from the root of a checkout, on a machine with one Hopper GPU
 (compute capability 9.0), nvcc and g++. It builds the port's kernels from
-the checkout's sources, then runs six phases, and fails (exit code 1,
+the checkout's sources, then runs seven phases, and fails (exit code 1,
 no result line) if any of them fails:
 
   1. device   CUDA present with capability (9, 0); prints the card's
-              name and power limit, torch's CUDA and nvcc's versions
+              name and power limit, torch's CUDA and nvcc's versions,
+              and the f32 issue rate every bound is computed at (SMs x
+              128 instructions per clock x the maximum SM clock)
   2. build    the wavefront and ALU-probe kernels (nvcc, sm_90a, one
-              process each, started together; their ptxas lines) and the
-              native host library (g++); prints the seconds each took and
-              native_host: true|false (false = the exact numpy host
+              process each, started together; ptxas' registers and
+              spills of every Q=512 instance, a summary of the rest) and
+              the native host library (g++); prints the seconds each took
+              and native_host: true|false (false = the exact numpy host
               fallbacks ran)
   3. kernels  the wavefront kernel bit for bit against its plain PyTorch
               version on the card, every warps-per-read instance (1, 2,
@@ -32,7 +35,12 @@ no result line) if any of them fails:
               reference stretches) against topk_candidates of the
               one-shot kernel's scores on the card; window_top5 and
               topk_candidates on the card against CPU copies, with
-              planted ties
+              planted ties; at Q=512 over the first 24,576 diagonals of
+              phase 7's reference, B=64: every one-shot warps instance
+              with full-length rows, and with a third of the rows clipped
+              (qlen 25 up to W-1), and the carry mode chained over three
+              segments with those start lanes (every warps instance and a
+              mixed chain, the state under carry_state_mask)
   4. main     R9 DNA `dtw -p 50 -q 250` through run_dtw on device="cuda"
               (B=512, 8 threads) over a seeded random 29,903-base
               reference (the length of the nCoV-2019 reference), both
@@ -46,8 +54,8 @@ no result line) if any of them fails:
               each mode bit for bit against its plain version; the
               wavefront kernel's ms per launch at the phase-4 shape and
               the carry kernel's per segment launch (B=512, Q=256,
-              Ds=32,000), each with its Gcell/s, its bound against the
-              data-sheet rate and against the probe's max(mix, mix2)
+              Ds=32,000), each with its Gcell/s, its bound at the f32
+              issue rate and against the probe's max(mix, mix2)
               in wavefront steps, and the plain version's ms on the
               card; the outputs of those timed plain runs hold the
               kernels bit for bit at the main path's shapes: the one-shot
@@ -66,7 +74,12 @@ no result line) if any of them fails:
               kernel's ms per launch for each warps instance at B = 16,
               64, 128, 256, 512 and 1,024 over the phase-4 reference, the
               instance ops/sdtw_wavefront.wavefront_warps picks marked
-              with *, and B=16's SM cycles per diagonal
+              with *, and B=16's SM cycles per diagonal; the same table at
+              Q=512 over phase 7's reference (B = 16 to 512) and B=512's
+              time and bound there, where the timed plain version's
+              output holds every warps instance bit for bit. Every bound
+              is at the f32 issue rate, and each kernel's share of it is
+              printed
   6. chunked  the chunked reference at full width: a seeded random
               4,641,652-base reference (the length of E. coli K-12
               MG1655), both strands (about 9.28M columns), 1,536 reads in
@@ -88,6 +101,21 @@ no result line) if any of them fails:
               that, the phase-4 subset through a forced ref_chunk of
               4,000 diagonals on the card is held byte for byte to the
               same on the CPU.
+  7. RNA      the default direct-RNA run, `dtw --rna -q 500 -p -1`, through
+              run_dtw on device="cuda" (B=512, 8 threads): 160 seeded
+              random transcripts of 600-7,000 bases (the size of sigfish's
+              sequin transcriptome test; forward 3'-end tracks of min(750,
+              L-4) events, about 160k columns, Q=512), 1,536 reads in 3
+              batches, each an adaptor and a polyA stretch before the
+              transcript's 3' end, one in ten clipped (under 500 events
+              past the polyA), one in twenty without adaptor and polyA
+              (prefix fail); the one-shot launch count must be > 0, the
+              clip pass must have run, prefix fail > 0, at least 75% of the
+              reads must map over their origin, and the PAF of a 64-read
+              subset must be byte-identical to a device="cpu" run and to a
+              forced ref_chunk of 32,000 diagonals on the card. Prints
+              reads/s and the stage and device seconds of a --profile-cpu
+              run.
 
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -122,11 +150,23 @@ N6_READS = 1_536
 SUBSET6 = 128           # reads checked byte for byte against the one-shot route
 CPU_REF_CHUNK = 4_000   # forced segment of the card-vs-CPU chunked check
 
+# workload of phase 7: direct RNA `--rna -q 500 -p -1`, the size of
+# sigfish's sequin transcriptome test (160 contigs)
+RNA_OPT = dict(rna=True, query_size=500, prefix_size=-1)
+N7_TX = 160
+N7_READS = 1_536
+TX_LEN = (600, 7_000)   # transcript lengths: both sides of gen_ref's min(750, L-4)
+SUBSET7 = 64            # reads checked byte for byte against the CPU path
+CUT3_DIAGS = 24_576     # phase 3's Q=512 checks: the RNA reference's first diagonals
+
 # ALU probe iterations per launch (the bench's default)
 PROBE_ITERS = 16384
 
-# H100 SXM peak rates: f32 outside the tensor cores, and HBM3
-PEAK_F32_OPS = 67e12
+# the sweeps' f32 operations (min, add, select; no FMA, built with
+# -fmad=false) issue at most 128 per SM per clock: their ceiling is that
+# issue rate at the SM clock nvidia-smi reads, not the data sheet's f32
+# rate, which counts an FMA as two operations. HBM3's rate for bytes.
+F32_ISSUE_PER_SM_CLK = 128
 PEAK_BYTES = 3.35e12
 
 
@@ -151,8 +191,8 @@ def smi_line() -> str:
 
 def make_workload(d: str, n_bases: int, n_reads: int, seed: int):
     """A one-contig FASTA and a BLOW5 of pore-model reads drawn from it.
-    Returns (fasta, blow5, truth): truth maps read id -> (strand, start,
-    end) in forward-strand base coordinates."""
+    Returns (fasta, blow5, truth): truth maps read id -> (contig, strand,
+    start, end) in forward-strand base coordinates."""
     import numpy as np
 
     from sigfish_tpu_torch.io.blow5 import Slow5Record, Slow5Writer
@@ -165,8 +205,9 @@ def make_workload(d: str, n_bases: int, n_reads: int, seed: int):
     seq = "".join("ACGT"[b] for b in rng.integers(0, 4, n_bases))
     rc = reverse_complement(seq)
     fa = os.path.join(d, "ref.fa")
+    contig = f"synth_{n_bases}"
     with open(fa, "w") as f:
-        f.write(f">synth_{n_bases}\n")
+        f.write(f">{contig}\n")
         for o in range(0, n_bases, 80):
             f.write(seq[o : o + 80] + "\n")
     bl = os.path.join(d, "reads.blow5")
@@ -190,31 +231,94 @@ def make_workload(d: str, n_bases: int, n_reads: int, seed: int):
                 range=1400.0, sampling_rate=4000.0, raw_signal=raw.astype(np.int16),
             ))
             lo, hi = s, s + n_ev + k - 1
-            truth[rid] = (strand, lo, hi) if strand == "+" else (strand, n_bases - hi, n_bases - lo)
+            truth[rid] = ((contig, strand, lo, hi) if strand == "+"
+                          else (contig, strand, n_bases - hi, n_bases - lo))
     return fa, bl, truth
 
 
-def subset_blow5(bl: str, out: str, keep) -> None:
-    """Copy the records whose read id is in `keep` into a new BLOW5."""
+RNA_HEADER = [{"experiment_type": "rna", "sequencing_kit": "sqk-rna002"}]
+
+
+def make_rna_workload(d: str, n_tx: int, n_reads: int, seed: int, tx_len=TX_LEN):
+    """A FASTA of n_tx seeded random transcripts and a BLOW5 (header
+    experiment_type rna) of direct-RNA reads. Each read is an adaptor
+    stretch (20 pA, 9,000-14,000 samples), a polyA stretch (62 pA,
+    1,000-3,000 samples: inside sigfish's band of the adaptor mean + 30
+    +-20 pA, above the adaptor finder's threshold, below every R9 RNA
+    level), then a transcript's 3' end walked towards 5' through the R9
+    RNA pore model: 560 levels, about 760 events past the polyA. One read
+    in ten (i % 10 == 9) walks 240 levels, about 320 events, fewer than
+    -q 500, so it is clipped; one in twenty (i % 20 == 4) has no adaptor
+    and no polyA, so its query start falls back to event 50 (prefix
+    fail). Returns (fasta, blow5, truth): truth maps read id -> (contig,
+    "+", start, end), the walk's bases."""
+    import numpy as np
+
+    from sigfish_tpu_torch.io.blow5 import Slow5Record, Slow5Writer
+    from sigfish_tpu_torch.models.genref import _seq_bytes, kmer_ranks
+    from sigfish_tpu_torch.models.pore_model import MODEL_ID_RNA_R9, load_builtin_model
+
+    rng = np.random.default_rng(seed)
+    model = load_builtin_model(MODEL_ID_RNA_R9)
+    k = model.kmer_size
+    fa = os.path.join(d, "tx.fa")
+    seqs = []
+    with open(fa, "w") as f:
+        for j in range(n_tx):
+            seq = "".join("ACGT"[b] for b in rng.integers(0, 4, int(rng.integers(*tx_len))))
+            seqs.append((f"tx{j:03d}", seq))
+            f.write(f">tx{j:03d}\n")
+            for o in range(0, len(seq), 80):
+                f.write(seq[o : o + 80] + "\n")
+    bl = os.path.join(d, "reads.blow5")
+    truth = {}
+    with Slow5Writer(bl, header_data=RNA_HEADER) as w:
+        for i in range(n_reads):
+            name, seq = seqs[int(rng.integers(n_tx))]
+            n_kmer = len(seq) + 1 - k
+            walk = min(n_kmer, 240 if i % 10 == 9 else 560)
+            levels = model.level_mean[kmer_ranks(_seq_bytes(seq[n_kmer - walk :]), k,
+                                                 warn_non_acgt=False)][::-1]
+            n_ad, n_pa = (0, 0) if i % 20 == 4 else (int(rng.integers(9_000, 14_000)),
+                                                     int(rng.integers(1_000, 3_000)))
+            tx = np.repeat(levels, rng.integers(20, 45, size=levels.size)).astype(np.float64)
+            pa = np.concatenate([rng.normal(20.0, 2.0, n_ad), rng.normal(62.0, 2.0, n_pa),
+                                 tx + rng.normal(0.0, 1.5, tx.size)])
+            raw = np.clip(np.rint(pa * 8192.0 / 1400.0 - 10.0), -32000, 32000)
+            rid = f"read{i:05d}"
+            w.write_record(Slow5Record(
+                read_id=rid, read_group=0, digitisation=8192.0, offset=10.0,
+                range=1400.0, sampling_rate=3012.0, raw_signal=raw.astype(np.int16),
+            ))
+            truth[rid] = (name, "+", n_kmer - walk, len(seq))
+    return fa, bl, truth
+
+
+def subset_blow5(bl: str, out: str, keep, header=None) -> None:
+    """Copy the records whose read id is in `keep` into a new BLOW5
+    (header: its header_data, genomic_dna by default)."""
     from sigfish_tpu_torch.io.blow5 import Slow5File, Slow5Writer
 
-    with Slow5File(bl) as src, Slow5Writer(out, header_data=[{"experiment_type": "genomic_dna"}]) as dst:
+    header = header or [{"experiment_type": "genomic_dna"}]
+    with Slow5File(bl) as src, Slow5Writer(out, header_data=header) as dst:
         for rec in src:
             if rec.read_id in keep:
                 dst.write_record(rec)
 
 
 def run_port(fa: str, bl: str, device: str, state=None, profile: bool = False,
-             ref_chunk: int = 0):
+             ref_chunk: int = 0, **kw):
     """run_dtw over a whole file; returns (PAF text, Core, seconds).
     profile=True runs the host stages one by one with their timers
     (--profile-cpu) and drains each batch before the next; on the card
     the Core then also records CUDA events around each route's device
-    work (Core.spans, Core.span_seconds)."""
+    work (Core.spans, Core.span_seconds). kw: other Options (phase 7's
+    RNA_OPT), over the DNA run's -p 50 -q 250."""
     from sigfish_tpu_torch.runtime import pipeline as pl
 
-    opt = pl.Options(batch_size=BATCH, num_thread=THREADS, prefix_size=PREFIX,
-                     query_size=W, device=device, profile=profile, ref_chunk=ref_chunk)
+    kw = {"prefix_size": PREFIX, "query_size": W, **kw}
+    opt = pl.Options(batch_size=BATCH, num_thread=THREADS, device=device, profile=profile,
+                     ref_chunk=ref_chunk, **kw)
     core = pl.Core(fa, bl, opt, state=state)
     out = io.StringIO()
     t0 = time.time()
@@ -228,24 +332,26 @@ def run_port(fa: str, bl: str, device: str, state=None, profile: bool = False,
     return out.getvalue(), core, dt
 
 
-def core_state(fa: str, bl: str):
-    """The Core state (pore model, reference layout) of a FASTA, built once."""
+def core_state(fa: str, bl: str, **kw):
+    """The Core state (pore model, reference layout) of a FASTA, built
+    once; kw as run_port's."""
     from sigfish_tpu_torch.runtime.pipeline import Core, Options
 
-    probe = Core(fa, bl, Options(query_size=W, prefix_size=PREFIX, num_thread=1, device="cuda"))
+    kw = {"prefix_size": PREFIX, "query_size": W, **kw}
+    probe = Core(fa, bl, Options(num_thread=1, device="cuda", **kw))
     state, pad_q = probe.state, probe.pad_q
     probe.close()
     return state, pad_q
 
 
 def overlap_share(paf: str, truth: dict) -> float:
-    """Share of reads whose PAF target interval, on the right strand,
-    overlaps the interval the read was drawn from."""
+    """Share of reads whose PAF target interval, on the right contig and
+    strand, overlaps the interval the read was drawn from."""
     hit = 0
     for line in paf.splitlines():
         f = line.split("\t")
-        strand, lo, hi = truth[f[0]]
-        if f[4] == strand and int(f[7]) < hi and int(f[8]) > lo:
+        contig, strand, lo, hi = truth[f[0]]
+        if f[5] == contig and f[4] == strand and int(f[7]) < hi and int(f[8]) > lo:
             hit += 1
     return hit / len(truth)
 
@@ -277,11 +383,44 @@ def once_ms(fn):
     return e0.elapsed_time(e1), out
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
+def bound(ops: float, nbytes: float, issue_rate: float) -> tuple[float, str]:
     """The least ms the card could take: the larger of the operations
-    over the f32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    over the f32 issue rate (instructions per second) and the bytes over
+    the memory rate."""
+    t_ops, t_bytes = ops / issue_rate, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ptxas_instances(report: str) -> list[tuple[str, int, int, int]]:
+    """(entry, registers, spill store bytes, spill load bytes) of each
+    kernel entry in an nvcc -Xptxas -v report."""
+    import re
+
+    out, entry, spills = [], None, (0, 0)
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out.append((entry, int(m.group(1)), *spills))
+            entry, spills = None, (0, 0)
+    return out
+
+
+def wavefront_instance(entry: str) -> dict | None:
+    """Q, rows a lane, warps and the std / carry / FS0 flags of a
+    wavefront_kernel<ROWS, WARPS, STD, CARRY, FS0> entry's mangled name."""
+    import re
+
+    m = re.search(r"wavefront_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E", entry)
+    if not m:
+        return None
+    rows, warps, std, carry, fs0 = (int(g) for g in m.groups())
+    return dict(Q=32 * rows * warps, rows=rows, warps=warps, std=std, carry=carry, fs0=fs0)
 
 
 def main() -> None:
@@ -324,6 +463,11 @@ def main() -> None:
     print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}")
     r = subprocess.run([kbuild.nvcc_path(), "--version"], capture_output=True, text=True, timeout=60)
     print("nvcc: " + (r.stdout.strip().splitlines() or ["?"])[-1])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    clk_max = sm_clock_mhz()[1]
+    issue = n_sm * F32_ISSUE_PER_SM_CLK * clk_max * 1e6
+    print(f"f32 issue rate, the bounds' operations rate: {n_sm} SMs x {F32_ISSUE_PER_SM_CLK} per "
+          f"clock x {clk_max:.0f} MHz = {issue / 1e12:.3f}e12 instructions/s")
 
     # ---------------------------------------------------------------- 2
     phase("2 build")
@@ -331,9 +475,20 @@ def main() -> None:
     reports = kbuild.build_all()
     print(f"kernels {', '.join(reports)} built in {time.time() - t0:.2f} s")
     for kname, rep in reports.items():
-        for ln in rep.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"  {kname}: {ln.strip()}")
+        insts = ptxas_instances(rep)
+        other = []
+        for entry, regs, st, ld in insts:
+            wi = wavefront_instance(entry)
+            if wi is not None and wi["Q"] == 512:
+                print(f"  {kname} Q=512 rows={wi['rows']} warps={wi['warps']} std={wi['std']} "
+                      f"carry={wi['carry']} fs0={wi['fs0']}: {regs} registers, {st} bytes spill "
+                      f"stores, {ld} bytes spill loads")
+            else:
+                other.append((regs, st + ld))
+        if other:
+            print(f"  {kname}: {len(other)} {'other ' if len(other) < len(insts) else ''}entries, "
+                  f"at most {max(r for r, _ in other)} registers, "
+                  f"{sum(b for _, b in other)} bytes spilled in all")
     t0 = time.time()
     from sigfish_tpu_torch import native
 
@@ -355,6 +510,22 @@ def main() -> None:
         u_h, valid_h = layout.build_column_maps(state.offsets, R, track_sizes=state.track_sizes)
         print(f"reference: {len(state.track_sizes)} tracks, R={R} columns, D={D} diagonals, Q={pad_q}")
 
+        # phase 7's direct-RNA workload, made here: phases 3 and 5 run the
+        # Q=512 instances over its reference
+        work7 = os.path.join(work, "rna")
+        os.makedirs(work7)
+        t0 = time.time()
+        fa7, bl7, truth7 = make_rna_workload(work7, N7_TX, N7_READS, SEED + 7)
+        state7, pad_q7 = core_state(fa7, bl7, **RNA_OPT)
+        W7 = RNA_OPT["query_size"]
+        R7 = state7.ref_cat.shape[0]
+        ypad7_h, rspad7_h, D7 = layout.prepare_wavefront_inputs(state7.ref_cat, state7.reset, pad_q7)
+        ypad7 = torch.from_numpy(ypad7_h).to(dev)
+        rspad7 = torch.from_numpy(rspad7_h).to(dev)
+        print(f"RNA workload: {N7_READS} reads over {N7_TX} transcripts, {len(state7.track_sizes)} "
+              f"tracks ('+' only), R={R7} columns, D={D7} diagonals, Q={pad_q7}, made in "
+              f"{time.time() - t0:.2f} s")
+
         # ------------------------------------------------------------ 3
         phase("3 kernels against their plain versions")
         rng = np.random.default_rng(SEED + 1)
@@ -371,31 +542,75 @@ def main() -> None:
         cuts = [0, 20_000, 40_007, D]  # three uneven segments
         warps_q = [w for w in wfm.WARPS if pad_q % (32 * w) == 0]
 
-        def check_warps(label, q, sl, std):
+        def check_warps(label, q, sl, std, y=ypad, r=rspad, lane=W - 1):
             """Every warps instance against one plain run; returns the
             scores of the instance the wrapper picks for this B, and the
             largest error."""
+            Q, Dy = q.shape[1], y.shape[1]
             t0 = time.time()
-            want = wfm.wavefront_plain(q, ypad, rspad, W - 1, sl, std)
+            want = wfm.wavefront_plain(q, y, r, lane, sl, std)
             torch.cuda.synchronize()
             plain_s = time.time() - t0
-            picked = wfm.wavefront_warps(q.shape[0], pad_q)
+            picked = wfm.wavefront_warps(q.shape[0], Q)
             worst = 0.0
-            for w in warps_q:
-                got = wfm.sdtw_wavefront(q, ypad, rspad, W - 1, start_lanes=sl, std=std, warps=w)
+            for w in [w for w in wfm.WARPS if Q % (32 * w) == 0]:
+                got = wfm.sdtw_wavefront(q, y, r, lane, start_lanes=sl, std=std, warps=w)
                 torch.cuda.synchronize()
                 ok = bits_equal(got, want)
                 err = abs_err(got, want)
                 worst = max(worst, err)
-                print(f"wavefront {label}: B={q.shape[0]} Q={pad_q} D={D} warps={w}"
+                print(f"wavefront {label}: B={q.shape[0]} Q={Q} D={Dy} warps={w}"
                       f"{'*' if w == picked else ''} bitwise_equal={ok} max_abs_err={err}")
                 if not ok:
                     fail(f"wavefront kernel (warps={w}) differs from its plain version ({label}, "
-                         f"B={q.shape[0]})")
+                         f"B={q.shape[0]}, Q={Q})")
                 if w == picked:
                     kept = got
             print(f"  (plain {plain_s:.1f} s; * the instance wavefront_warps picks)")
             return kept, worst
+
+        def check_carry(label, q, sl, std, one, cuts, y=ypad, r=rspad, lane=W - 1):
+            """The carry mode chained over `cuts`, every warps instance and
+            one chain mixing warp counts, against one plain carry chain:
+            scores, and the state under carry_state_mask; the chained
+            scores against `one`, the one-shot launch's. Returns the
+            largest error."""
+            B, Q = q.shape
+            t0 = time.time()
+            plain, st_p = [], wfm.carry_fresh_state(B, Q, dev)
+            for lo, hi in zip(cuts[:-1], cuts[1:]):
+                plain.append(wfm.wavefront_plain(q, y[:, lo:hi], r[:, lo:hi], lane, sl, std, *st_p))
+                st_p = plain[-1][1:]
+            torch.cuda.synchronize()
+            plain_s = time.time() - t0
+            masks = wfm.carry_state_mask(sl, B, Q, dev)
+            warps_q = [w for w in wfm.WARPS if Q % (32 * w) == 0]
+            mixed = (warps_q[-1], warps_q[0], warps_q[1])
+            worst = 0.0
+            for chain in [(w,) * len(plain) for w in warps_q] + [mixed]:
+                st_k, parts, ok = wfm.carry_fresh_state(B, Q, dev), [], True
+                for (lo, hi), w, want in zip(zip(cuts[:-1], cuts[1:]), chain, plain):
+                    out_k = wfm.sdtw_wavefront_carry(q, y[:, lo:hi], r[:, lo:hi], *st_k,
+                                                     lane, sl, std, warps=w)
+                    torch.cuda.synchronize()
+                    ok = ok and bits_equal(out_k[0], want[0])
+                    worst = max(worst, abs_err(out_k[0], want[0]))
+                    for a, b, m in zip(out_k[1:], want[1:], masks):
+                        ok = ok and bits_equal(a[m], b[m])
+                        worst = max(worst, abs_err(a[m], b[m]))
+                    st_k = out_k[1:]
+                    parts.append(out_k[0])
+                same = bits_equal(torch.cat(parts, dim=1), one)
+                print(f"carry {label}: Q={Q} segments {cuts}, warps per segment {chain}, scores "
+                      f"and masked state bitwise_equal={ok}, chained == one launch: {same}, "
+                      f"max_abs_err={worst}")
+                if not ok:
+                    fail(f"carry kernel differs from its plain version ({label}, Q={Q}, warps {chain})")
+                if not same:
+                    fail(f"chained carry launches differ from one wavefront launch ({label}, "
+                         f"Q={Q}, warps {chain})")
+            print(f"  (plain carry chain {plain_s:.1f} s)")
+            return worst
 
         for label, q_h, fs_h, std in (
             ("full-length", q_full, None, False),
@@ -408,44 +623,35 @@ def main() -> None:
             max_err = max(max_err, err)
             if label == "clipped":
                 scores = got
+            carry_err = max(carry_err, check_carry(label, q, sl, std, got, cuts))
+            del got
 
-            # the carry mode, chained, every warps instance and one chain
-            # mixing warp counts against one plain carry chain: scores,
-            # and the state under carry_state_mask
-            t0 = time.time()
-            plain, st_p = [], wfm.carry_fresh_state(B3, pad_q, dev)
-            for lo, hi in zip(cuts[:-1], cuts[1:]):
-                plain.append(wfm.wavefront_plain(q, ypad[:, lo:hi], rspad[:, lo:hi], W - 1, sl, std,
-                                                 *st_p))
-                st_p = plain[-1][1:]
-            torch.cuda.synchronize()
-            plain_s = time.time() - t0
-            masks = wfm.carry_state_mask(sl, B3, pad_q, dev)
-            mixed = (warps_q[-1], warps_q[0], warps_q[1])
-            for chain in [(w,) * len(plain) for w in warps_q] + [mixed]:
-                st_k, parts, ok = wfm.carry_fresh_state(B3, pad_q, dev), [], True
-                for (lo, hi), w, want in zip(zip(cuts[:-1], cuts[1:]), chain, plain):
-                    out_k = wfm.sdtw_wavefront_carry(q, ypad[:, lo:hi], rspad[:, lo:hi], *st_k,
-                                                     W - 1, sl, std, warps=w)
-                    torch.cuda.synchronize()
-                    ok = ok and bits_equal(out_k[0], want[0])
-                    carry_err = max(carry_err, abs_err(out_k[0], want[0]))
-                    for a, b, m in zip(out_k[1:], want[1:], masks):
-                        ok = ok and bits_equal(a[m], b[m])
-                        carry_err = max(carry_err, abs_err(a[m], b[m]))
-                    st_k = out_k[1:]
-                    parts.append(out_k[0])
-                one = bits_equal(torch.cat(parts, dim=1), got)
-                print(f"carry {label}: segments {cuts}, warps per segment {chain}, scores and "
-                      f"masked state bitwise_equal={ok}, chained == one launch: {one}, "
-                      f"max_abs_err={carry_err}")
-                if not ok:
-                    fail(f"carry kernel differs from its plain version ({label}, warps {chain})")
-                if not one:
-                    fail(f"chained carry launches differ from one wavefront launch ({label}, "
-                         f"warps {chain})")
-            print(f"  (plain carry chain {plain_s:.1f} s)")
-            del got, parts, st_k, st_p, out_k, plain, want
+        # Q=512, the RNA path's width, over the RNA reference's first
+        # CUT3_DIAGS diagonals: full-length reads without start lanes, and
+        # a batch mixing full-length rows with clipped rows (qlen 25 up to
+        # W-1, start lanes up to W-25) whose carry chain takes the start
+        # lanes on every segment
+        y3 = ypad7[:, :CUT3_DIAGS].contiguous()
+        r3 = rspad7[:, :CUT3_DIAGS].contiguous()
+        qlens3 = np.full(B3, W7, np.int32)
+        qlens3[1::3] = rng.integers(25, W7, size=qlens3[1::3].size)
+        qlens3[1] = 25
+        q3, qlens3, _ = layout.make_query_batch(
+            [rng.standard_normal(int(n)).astype(np.float32) for n in qlens3], pad_q=pad_q7)
+        q3, fs3 = layout.shift_queries_for_clip(q3, qlens3, W7 - 1)
+        q3_full = rng.standard_normal((B3, pad_q7)).astype(np.float32)
+        cuts3 = [0, 8_000, 16_007, CUT3_DIAGS]
+        for label, q_h, fs_h in (("Q=512 full-length", q3_full, None),
+                                 ("Q=512 clipped", q3, fs3)):
+            q = torch.from_numpy(q_h).to(dev)
+            sl = None if fs_h is None else torch.from_numpy(fs_h).to(dev)
+            got, err = check_warps(label, q, sl, False, y3, r3, W7 - 1)
+            max_err = max(max_err, err)
+            if sl is not None:
+                carry_err = max(carry_err, check_carry(label, q, sl, False, got, cuts3, y3, r3,
+                                                       W7 - 1))
+            del got
+        del y3, r3
 
         # a small batch of clipped reads: 16 rows (the one-shot 4-warp instance)
         B16 = 16
@@ -608,7 +814,7 @@ def main() -> None:
                 fail(f"the ALU probe kernel differs from its plain version ({mode})")
         probe_ms = probe["peak_ms"]["mix"]
         probe_bound_ms, probe_bound_by = bound(
-            OPS_PER_CELL * apm.step_count("mix", BATCH, PROBE_ITERS), 2 * 4 * BATCH * apm.Q)
+            OPS_PER_CELL * apm.step_count("mix", BATCH, PROBE_ITERS), 2 * 4 * BATCH * apm.Q, issue)
 
         # the one-shot kernel at the main path's shape: timed, and held
         # bit for bit to the plain version's (timed) output
@@ -626,13 +832,14 @@ def main() -> None:
                      f"path's shape")
         del got, want
         cells = BATCH * pad_q * D
-        bound_ms, bound_by = bound(OPS_PER_CELL * cells, 4 * (BATCH * pad_q + 2 * D + BATCH * D))
+        bound_ms, bound_by = bound(OPS_PER_CELL * cells, 4 * (BATCH * pad_q + 2 * D + BATCH * D),
+                                   issue)
         print(f"kernel time in the main path: about {launches * ms / 1e3:.3f} s of "
               f"run_dtw's {dt:.3f} s ({launches} launches x {ms:.3f} ms)")
         print(f"wavefront B={BATCH} Q={pad_q} D={D} warps={wfm.wavefront_warps(BATCH, pad_q)}: "
               f"{ms:.3f} ms per launch (median of 5), "
               f"{cells / ms / 1e6:.1f} Gcell/s, bound {bound_ms:.3f} ms by {bound_by} "
-              f"({OPS_PER_CELL} f32 ops/cell at {PEAK_F32_OPS / 1e12:.0f} TFLOP/s), "
+              f"({OPS_PER_CELL} f32 ops/cell at the issue rate), {bound_ms / ms:.1%} of the bound, "
               f"{cells / sol / 1e6:.3f} ms at the probe's {sol:.1f} Gstep/s, "
               f"plain version {plain_ms:.1f} ms; card: {smi}")
 
@@ -689,12 +896,13 @@ def main() -> None:
         c_ms1 = carry_bench["table"][str(BATCH)]["1"]
         c_cells = BATCH * pad_q * Ds
         c_bytes = 4 * (BATCH * pad_q + 2 * Ds + BATCH * Ds + 2 * (2 * BATCH * pad_q + 2 * pad_q))
-        c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes)
+        c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes, issue)
         c_ceil_ms = c_cells / sol / 1e6
         clk_max = carry_bench["clock_max_mhz"]
         print(f"carry B={BATCH} Q={pad_q} Ds={Ds} warps={c_pick}: {c_ms_fs0:.3f} ms per segment "
               f"launch with no start lanes ({c_ms1:.3f} at 1 warp), {c_ms_sl:.3f} with start lanes, "
-              f"{c_cells / c_ms_fs0 / 1e6:.1f} Gcell/s, bound {c_bound_ms:.3f} ms by {c_bound_by}, "
+              f"{c_cells / c_ms_fs0 / 1e6:.1f} Gcell/s, bound {c_bound_ms:.3f} ms by {c_bound_by} "
+              f"({c_bound_ms / c_ms_fs0:.1%} of it, {c_bound_ms / c_ms_sl:.1%} with start lanes), "
               f"{c_ceil_ms:.3f} ms at the probe's {sol:.1f} Gstep/s; "
               f"{c_ms_fs0 * 1e-3 * clk_max * 1e6 / Ds:.1f} SM cycles per diagonal against "
               f"{c_ceil_ms * 1e-3 * clk_max * 1e6 / Ds:.1f} at the probe's ceiling and "
@@ -704,7 +912,8 @@ def main() -> None:
               f"{plain_times[True][0]:.1f} with (fresh state; {plain_times[False][1]:.1f} / "
               f"{plain_times[True][1]:.1f} ms carried); card: {smi}")
         print(f"alu_peak mix B={BATCH} iters={PROBE_ITERS}: {probe_ms:.3f} ms per launch, bound "
-              f"{probe_bound_ms:.3f} ms by {probe_bound_by}, plain version {probe_plain_ms:.1f} ms")
+              f"{probe_bound_ms:.3f} ms by {probe_bound_by} ({probe_bound_ms / probe_ms:.1%} of the "
+              f"bound at the f32 issue rate), plain version {probe_plain_ms:.1f} ms; card: {smi}")
         del x
 
         # the one-shot kernel's ms per launch for each warps instance and
@@ -725,12 +934,53 @@ def main() -> None:
         w16 = wfm.wavefront_warps(16, pad_q)
         ms16 = table[16][w16]
         bound16_ms, bound16_by = bound(OPS_PER_CELL * 16 * pad_q * D,
-                                       4 * (16 * pad_q + 2 * D + 16 * D))
+                                       4 * (16 * pad_q + 2 * D + 16 * D), issue)
         print(f"B=16 cycles per diagonal at the {clk_max:.0f} MHz maximum SM clock (now "
               f"{clk_now:.0f} MHz): " + ", ".join(
                   f"warps={w} {t * 1e-3 * clk_max * 1e6 / D:.1f}" for w, t in table[16].items())
               + f"; bound {bound16_ms:.4f} ms by {bound16_by}")
         del q, q2, qt
+
+        # the same table at Q=512 over the RNA reference (phase 7's
+        # launches), and B=512's time and bound at wavefront_warps' pick
+        warps_q7 = [w for w in wfm.WARPS if pad_q7 % (32 * w) == 0]
+        q7 = torch.from_numpy(rng.standard_normal((BATCH, pad_q7)).astype(np.float32)).to(dev)
+        print(f"one-shot ms per launch by warps per read, Q={pad_q7} D={D7} over the RNA reference "
+              f"(median of 5; * = the instance wavefront_warps picks); card: {smi}")
+        table7 = {}
+        for Bt in (16, 64, 128, 256, 512):
+            qt = q7[:Bt].contiguous()
+            row = {w: median_ms(lambda: wfm.sdtw_wavefront(qt, ypad7, rspad7, W7 - 1, warps=w), 5)
+                   for w in warps_q7}
+            table7[Bt] = row
+            pick = wfm.wavefront_warps(Bt, pad_q7)
+            print(f"  B={Bt:4d}: " + "  ".join(
+                f"warps={w}{'*' if w == pick else ' '} {t:8.3f}" for w, t in row.items()))
+        w7 = wfm.wavefront_warps(BATCH, pad_q7)
+        ms7 = table7[BATCH][w7]
+        # the shape phase 7 launches, B=512 over the whole RNA reference:
+        # the plain version timed once, every warps instance held to its
+        # output bit for bit
+        plain_ms7, want_q512 = once_ms(lambda: wfm.wavefront_plain(q7, ypad7, rspad7, W7 - 1))
+        for w in warps_q7:
+            got = wfm.sdtw_wavefront(q7, ypad7, rspad7, W7 - 1, warps=w)
+            ok = bits_equal(got, want_q512)
+            max_err = max(max_err, abs_err(got, want_q512))
+            print(f"wavefront B={BATCH} Q={pad_q7} D={D7} warps={w}{'*' if w == w7 else ''}: "
+                  f"bitwise_equal={ok}")
+            if not ok:
+                fail(f"wavefront kernel (warps={w}) differs from its plain version at the RNA "
+                     f"path's shape (B={BATCH}, Q={pad_q7})")
+        del got, want_q512
+        cells7 = BATCH * pad_q7 * D7
+        bound7_ms, bound7_by = bound(OPS_PER_CELL * cells7,
+                                     4 * (BATCH * pad_q7 + 2 * D7 + BATCH * D7), issue)
+        print(f"wavefront B={BATCH} Q={pad_q7} D={D7} warps={w7}: {ms7:.3f} ms per launch, "
+              f"{cells7 / ms7 / 1e6:.1f} Gcell/s, bound {bound7_ms:.3f} ms by {bound7_by} "
+              f"({bound7_ms / ms7:.1%} of it), {cells7 / sol / 1e6:.3f} ms at the probe's "
+              f"{sol:.1f} Gstep/s, {ms7 * 1e-3 * clk_max * 1e6 / D7:.1f} SM cycles per diagonal, "
+              f"plain version {plain_ms7:.1f} ms; card: {smi}")
+        del q7, qt
 
         # ------------------------------------------------------------ 6
         phase("6 chunked reference at full width")
@@ -863,9 +1113,74 @@ def main() -> None:
         if not ok:
             fail("the chunked route's PAF differs from the one-shot route's")
 
+        # ------------------------------------------------------------ 7
+        phase("7 direct RNA at full width")
+        wfm.sdtw_wavefront.launches = 0
+        wfm.sdtw_wavefront.launches_by_warps = dict.fromkeys(wfm.WARPS, 0)
+        wfm.sdtw_wavefront_carry.launches = 0
+        paf7, core7, dt7 = run_port(fa7, bl7, "cuda", state=state7, **RNA_OPT)
+        launches7 = wfm.sdtw_wavefront.launches
+        by_warps7 = {w: n for w, n in wfm.sdtw_wavefront.launches_by_warps.items() if n}
+        carry7 = wfm.sdtw_wavefront_carry.launches
+        print(f"run_dtw on cuda, --rna -q {W7} -p -1: {core7.total_reads} reads, "
+              f"{len(paf7.splitlines())} PAF lines, {dt7:.3f} s, {core7.total_reads / dt7:.1f} "
+              f"reads/s end to end; prefix fail {core7.prefix_fail}, too short {core7.too_short}, "
+              f"ignored {core7.ignored}; card: {smi}")
+        print(f"Q={pad_q7} one-shot launches {launches7} (by warps per read: {by_warps7}), "
+              f"{ms7:.3f} ms per B={BATCH} launch at warps={w7} (phase 5), carry launches {carry7}, "
+              f"routes {core7.routes}; card: {smi}")
+        if launches7 <= 0 or core7.routes["oneshot"] <= 0:
+            fail("the RNA run launched no one-shot wavefront kernel")
+        if carry7 or core7.routes["chunked"]:
+            fail("the RNA run took the chunked route; its reference is under the auto threshold")
+        if core7.routes["clip_pass"] <= 0:
+            fail("the RNA run's clipped reads took no clip pass")
+        if core7.prefix_fail <= 0:
+            fail("no RNA read fell back to the fixed query start (prefix fail)")
+        if core7.total_reads != N7_READS:
+            fail(f"{core7.total_reads} reads processed, want {N7_READS}")
+        share7 = overlap_share(paf7, truth7)
+        print(f"reads mapped over their origin: {share7:.4f}")
+        if share7 < 0.75:
+            fail(f"only {share7:.4f} of the RNA reads map over the transcript stretch they were "
+                 "drawn from")
+
+        ppaf7, pcore7, pdt7 = run_port(fa7, bl7, "cuda", state=state7, profile=True, **RNA_OPT)
+        print(f"stages, --profile-cpu run ({pdt7:.3f} s, unoverlapped): load "
+              f"{pcore7.load_db_time:.3f} s, parse {pcore7.parse_time:.3f} s, events (whole "
+              f"signal) {pcore7.event_time:.3f} s, normalise with the polyA scan "
+              f"{pcore7.normalise_time:.3f} s, device + "
+              f"backtrack + PAF {pcore7.dtw_time:.3f} s; device time of the one-shot route "
+              f"{pcore7.span_seconds('oneshot'):.3f} s in {len(pcore7.spans['oneshot'])} batches "
+              f"(CUDA events); card: {smi}")
+        if ppaf7 != paf7:
+            fail("the RNA --profile-cpu run's PAF differs from the overlapped run's")
+
+        by_id7 = {ln.split("\t")[0]: ln for ln in paf7.splitlines()}
+        keep7 = [f"read{i:05d}" for i in range(SUBSET7)]
+        sub7 = os.path.join(work7, "subset.blow5")
+        subset_blow5(bl7, sub7, set(keep7), header=RNA_HEADER)
+        want7 = "".join(by_id7[r] + "\n" for r in keep7 if r in by_id7)
+        n_clip7 = sum(1 for i in range(SUBSET7) if i % 10 == 9)
+        cpu_paf7, cpu_core7, cpu_dt7 = run_port(fa7, sub7, "cpu", state=state7, **RNA_OPT)
+        ok = cpu_paf7 == want7
+        print(f"PAF of {SUBSET7} RNA reads ({n_clip7} clipped, {cpu_core7.prefix_fail} prefix "
+              f"fail) on cpu vs cuda: byte_identical={ok} (cpu {cpu_dt7:.1f} s)")
+        if not ok:
+            fail("the RNA run's PAF on the card differs from the CPU path's")
+        wfm.sdtw_wavefront_carry.launches = 0
+        ch_paf7, ch_core7, ch_dt7 = run_port(fa7, sub7, "cuda", state=state7, ref_chunk=32_000,
+                                             **RNA_OPT)
+        ok = ch_paf7 == want7 and ch_core7.routes["chunked"] > 0 and ch_core7.routes["oneshot"] == 0
+        print(f"the same {SUBSET7} reads through a forced ref_chunk of 32,000 diagonals on cuda "
+              f"({wfm.sdtw_wavefront_carry.launches} carry launches, routes {ch_core7.routes}): "
+              f"byte_identical to the one-shot route={ok} ({ch_dt7:.1f} s)")
+        if not ok:
+            fail("the RNA run's chunked route differs from its one-shot route")
+
         # the carry entry times the instance phase 6 launched (every launch
         # with start lanes, checked above); the start lanes add B i32 reads
-        c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes + 4 * BATCH)
+        c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes + 4 * BATCH, issue)
         result = {"kernels": [
             {
                 "name": "sdtw_wavefront",
@@ -881,6 +1196,13 @@ def main() -> None:
                 "library_ms": None,
                 "warps": {str(BATCH): wfm.wavefront_warps(BATCH, pad_q), "16": w16},
                 "ms_b16": ms16,
+                "launches_rna": launches7,
+                "ms_q512": ms7,
+                "plain_ms_q512": plain_ms7,
+                "bound_ms_q512": bound7_ms,
+                "bound_by_q512": bound7_by,
+                "warps_q512": w7,
+                "ms_by_warps_q512": {str(w): t for w, t in table7[BATCH].items()},
             },
             {
                 "name": "sdtw_wavefront_carry",

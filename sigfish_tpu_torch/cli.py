@@ -1,8 +1,8 @@
 """Command-line interface: `python -m sigfish_tpu_torch.cli dtw`.
 
 The `dtw` option table of sigfish_tpu/cli.py, restricted to what this
-slice of the port serves (R9 DNA subsequence DTW, PAF out, one device),
-plus --device. The flags of later slices, and the `eval` command, are
+slice of the port serves (R9 DNA and direct RNA subsequence DTW, PAF
+out, one device), plus --device. The flags of later slices, and the `eval` command, are
 accepted and raise NotImplementedError naming the ROADMAP.md item that
 brings them. --accel and --engine choose among the JAX package's
 engines; the port picks its path with --device, so an explicit value of
@@ -58,7 +58,7 @@ def make_dtw_parser(prog: str = "sigfish_tpu_torch dtw") -> argparse.ArgumentPar
     p.add_argument("--kmer-model", default=None, help="custom nucleotide k-mer model file (nanopolish format)")
     p.add_argument("--meth-model", default=None, help=argparse.SUPPRESS)  # parsed, unused (parity)
     p.add_argument("-w", "--window", default=None, help=argparse.SUPPRESS)  # vestigial (parity, ref dtw_main.c:63)
-    p.add_argument("--rna", action="store_true", help="the dataset is direct RNA (not served yet)")
+    p.add_argument("--rna", action="store_true", help="the dataset is direct RNA")
     p.add_argument("-b", "--prefix", "-p", dest="prefix", type=int, default=50, help="events to trim at query start [50]")
     p.add_argument("-q", "--query-size", type=int, default=250, help="number of events in query signal to align [250]")
     p.add_argument("--debug-break", type=int, default=-1, help="break after this many batches")

@@ -7,8 +7,9 @@ track offsets and sizes, and which contig and strand each track is).
 `core_state_from_numpy` builds the port's `CoreState` from those arrays as
 a `sigfish_tpu` `Core` holds them (`model.level_mean`, `model.level_stdv`,
 `kmer_size`, `ref_cat`, `reset`, `track_offsets`, `track_sizes`,
-`track_meta`), so both packages can be fed identical state; the port's
-`Core` takes such a state in place of building its own.
+`track_meta`, and `ref.ref_st_offset`), so both packages can be fed
+identical state; the port's `Core` takes such a state in place of
+building its own.
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ class CoreState:
     offsets: np.ndarray                 # (T+1,) i64 track starts, then the total
     track_sizes: list[int]              # (T,) real (unpadded) track lengths
     track_meta: list[tuple[int, str]]   # (T,) (contig id, strand)
+    # per contig, the base its track starts at: RNA's 3'-end tracks start
+    # at L - ref_len - (k-1) (models/genref.py), added to PAF positions;
+    # None is 0 for every contig (DNA; an RNA Core refuses it)
+    ref_st_offset: list[int] | None = None
 
 
 def core_state_from_numpy(
@@ -41,8 +46,11 @@ def core_state_from_numpy(
     offsets: np.ndarray,
     track_sizes: list[int],
     track_meta: list[tuple[int, str]],
+    ref_st_offset: list[int] | None = None,
 ) -> CoreState:
-    """Copy the arrays into a CoreState, checking that they agree."""
+    """Copy the arrays into a CoreState, checking that they agree.
+    ref_st_offset: each contig's track start in bases (RefSynth's), or
+    None for 0 everywhere (DNA only: an RNA Core raises without it)."""
     k = int(kmer_size)
     level_mean = np.array(level_mean, dtype=np.float32)
     level_stdv = np.array(level_stdv, dtype=np.float32)
@@ -70,6 +78,13 @@ def core_state_from_numpy(
         raise ValueError("tracks: a track overruns the next track's offset")
     if offsets[-1] > ref_cat.shape[0]:
         raise ValueError("tracks: offsets run past the reference array")
+    if ref_st_offset is not None:
+        ref_st_offset = [int(o) for o in ref_st_offset]
+        if any(rid >= len(ref_st_offset) for rid, _ in meta) or min(ref_st_offset, default=0) < 0:
+            raise ValueError(
+                f"ref_st_offset: {len(ref_st_offset)} contigs, want one offset >= 0 for "
+                "every contig the tracks name"
+            )
     return CoreState(
         model=PoreModel(kmer_size=k, level_mean=level_mean, level_stdv=level_stdv),
         ref_cat=ref_cat,
@@ -77,4 +92,5 @@ def core_state_from_numpy(
         offsets=offsets,
         track_sizes=sizes,
         track_meta=meta,
+        ref_st_offset=ref_st_offset,
     )

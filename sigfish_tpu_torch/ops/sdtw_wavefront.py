@@ -54,10 +54,18 @@ _KERNEL_ROWS = (1, 2, 4, 8, 12, 16)
 # lane Q / (32 * warps) must be whole)
 WARPS = (1, 2, 4, 8)
 
-# the largest batch the one-shot kernel runs at 4 warps per read (2
-# above): where 4 is the fastest instance in chip_smoke.py phase 5's
-# table of ms per launch at Q=256 over D=60,672 on an H100 (PERF.md)
-_FOUR_WARPS_MAX_B = 256
+# warps per read of the one-shot kernel by batch size, as (largest B,
+# warps) steps: the fastest instance in chip_smoke.py phase 5's tables of
+# ms per launch on an H100 (PERF.md), at Q=256 over D=60,672 (B up to
+# 1,024) and at Q=512 over the direct-RNA reference's D=160,768 (B up to
+# 512). Only those two widths were measured: every Q below 512 takes the
+# Q=256 table, every Q from 512 the Q=512 one. Each table's last step
+# holds beyond its largest B (the pipeline launches at most DEVICE_CHUNK
+# = 512 rows).
+_ONESHOT_WARPS = {
+    256: ((256, 4), (None, 2)),
+    512: ((256, 8), (None, 4)),
+}
 
 # the largest batch the carry mode runs at 2 warps per read (1 above):
 # where 2 is the fastest instance in chip_smoke.py phase 5's table of ms
@@ -146,12 +154,15 @@ def wavefront_plain(
 
 
 def wavefront_warps(B: int, Q: int) -> int:
-    """Warps per read for a one-shot launch of B reads of Q rows: 4 where
-    B leaves most of the card's 528 schedulers idle and each read's chain
-    of steps is the whole time (fewer rows per lane make every step
-    shorter), 2 once B fills them. The largest count built for Q at or
-    below the table's."""
-    return _built_warps(4 if B <= _FOUR_WARPS_MAX_B else 2, Q)
+    """Warps per read for a one-shot launch of B reads of Q rows, from
+    _ONESHOT_WARPS: many where B leaves most of the card's 528 schedulers
+    idle and each read's chain of steps is the whole time (fewer rows per
+    lane make every step shorter), fewer once B fills them. At Q=256: 4
+    up to B=256, 2 beyond; at Q=512: 8 up to B=256, 4 beyond. The
+    largest count built for Q at or below the table's."""
+    steps = _ONESHOT_WARPS[512 if Q >= 512 else 256]
+    want = next(w for b_max, w in steps if b_max is None or B <= b_max)
+    return _built_warps(want, Q)
 
 
 def carry_warps(B: int, Q: int) -> int:

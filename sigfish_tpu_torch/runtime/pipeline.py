@@ -25,10 +25,12 @@ through the kernel, CPU tensors (device="cpu") through its plain
 PyTorch version. There is no engine choice and no silent fallback:
 Core raises when CUDA is asked for and absent.
 
-This port serves R9 DNA subsequence DTW with PAF output on one device,
-over references of any length (one-shot or chunked). Every other option
-raises NotImplementedError naming the ROADMAP.md item (queue 1) that
-brings it.
+This port serves R9 subsequence DTW with PAF output on one device, over
+references of any length (one-shot or chunked): DNA, and direct RNA
+(--rna, or a header's experiment_type rna) with its 3'-end tracks,
+reversed queries and, with -p -1, the query start found after the polyA
+tail on the host (ops/jnn.detect_polya_end). Every other option raises
+NotImplementedError naming the ROADMAP.md item (queue 1) that brings it.
 """
 
 from __future__ import annotations
@@ -47,7 +49,13 @@ from ..convert import CoreState, core_state_from_numpy
 from ..io.blow5 import Slow5File, Slow5Record
 from ..io.fasta import read_fasta
 from ..models.genref import RefSynth, gen_ref
-from ..models.pore_model import MODEL_ID_DNA_R9, load_builtin_model, read_model_tsv
+from ..models.pore_model import (
+    MODEL_ID_DNA_R9,
+    MODEL_ID_RNA_R9,
+    load_builtin_model,
+    read_model_tsv,
+)
+from ..ops import jnn
 from ..ops.candidates import compute_mapq
 from ..ops.candidates_dev import topk_candidates, window_top5
 from ..ops.chunked_ref import (
@@ -59,7 +67,7 @@ from ..ops.chunked_ref import (
     prepare_chunked_inputs,
     prepare_clip_inputs,
 )
-from ..ops.events import DNA_PARAMS, get_events, get_events_prefix
+from ..ops.events import DNA_PARAMS, RNA_PARAMS, get_events, get_events_prefix
 from ..ops.layout import (
     build_column_maps,
     make_query_batch,
@@ -71,19 +79,18 @@ from ..ops.layout import (
 from ..ops.sdtw_ref import subsequence_cost_seeded, subsequence_path
 from ..ops.sdtw_wavefront import sdtw_wavefront
 from ..output import paf_line
-from ..utils import log_info, log_warning
+from ..utils import log_info, log_verbose, log_warning
 
 # what brings each option that this slice does not serve (ROADMAP.md,
 # queue 1)
 _LATER = {
-    "rna": "item 7 (RNA, --rna)",
-    "dtw_std": "item 7 (--dtw-std)",
-    "invert": "item 7 (--invert)",
-    "secondary": "item 7 (--secondary)",
-    "full_ref": "item 7 (--full-ref)",
-    "from_end": "item 7 (--from-end)",
-    "sam": "item 7 (--sam)",
-    "pore": "item 7 (R10 and RNA004 chemistries)",
+    "dtw_std": "item 7c (--dtw-std)",
+    "invert": "item 7c (--invert)",
+    "full_ref": "item 7c (--full-ref)",
+    "secondary": "item 7b (--secondary)",
+    "from_end": "item 7b (--from-end)",
+    "sam": "item 7b (--sam)",
+    "pore": "item 7d (R10 and RNA004 chemistries)",
     "host_stages": "item 10 (--host-stages device)",
     "mesh": "item 11 (multi-GPU mesh)",
     "trace": "item 6 (--trace, a torch.profiler trace)",
@@ -130,12 +137,9 @@ class Options:
 
     def check_slice(self) -> None:
         """Raise NotImplementedError for an option outside this slice."""
-        for flag in ("rna", "dtw_std", "invert", "secondary", "full_ref",
-                     "from_end", "sam"):
+        for flag in ("dtw_std", "invert", "secondary", "full_ref", "from_end", "sam"):
             if getattr(self, flag):
                 raise _later("--" + flag.replace("_", "-"), flag)
-        if self.prefix_size < 0:
-            raise _later("-p -1 (query start autodetection)", "rna")
         if self.pore not in (None, "r9"):
             raise _later(f"--pore {self.pore}", "pore")
         if self.mesh:
@@ -155,13 +159,20 @@ class BatchStats:
 
 def _ref_meta(fasta_path: str, state: CoreState) -> RefSynth:
     """Contig names and lengths for output, from the FASTA, with the
-    event-track lengths taken from a given state (DNA: L+1-k, offset 0)."""
+    event-track lengths and start offsets taken from a given state."""
     ref = RefSynth()
     for name, seq in read_fasta(fasta_path):
         ref.ref_names.append(name)
         ref.ref_seq_lengths.append(len(seq))
-        ref.ref_st_offset.append(0)
         ref.num_ref += 1
+    if state.ref_st_offset is None:
+        ref.ref_st_offset = [0] * ref.num_ref
+    elif len(state.ref_st_offset) == ref.num_ref:
+        ref.ref_st_offset = list(state.ref_st_offset)
+    else:
+        raise ValueError(
+            f"state has {len(state.ref_st_offset)} contig offsets; {fasta_path} has {ref.num_ref}"
+        )
     ref.ref_lengths = [0] * ref.num_ref
     for (rid, strand), size in zip(state.track_meta, state.track_sizes):
         if rid >= ref.num_ref:
@@ -203,9 +214,10 @@ class Core:
         exp = self.sf.header_get("experiment_type", 0)
         if exp is None:
             log_warning("experiment_type not found in SLOW5 header. Assuming genomic_dna")
-        elif exp == "rna":
-            raise _later("RNA data (experiment_type rna)", "rna")
-        elif exp != "genomic_dna":
+        elif exp == "rna" and not opt.rna:
+            opt.rna = True
+            log_verbose("Detected RNA data. --rna was set automatically.")
+        elif exp not in ("genomic_dna", "rna"):
             log_warning(f"Unknown experiment type: {exp}. Assuming genomic_dna")
         for g in range(1, self.sf.num_read_groups):
             curr = self.sf.header_get("experiment_type", g)
@@ -232,7 +244,8 @@ class Core:
 
         # samples-per-event estimate for the prefix-bounded eventization
         # fast path (_prepare_read_prefix); EMA-refined from real reads
-        self._dwell_ema = 10.0
+        # (after auto-detection, so opt.rna is final)
+        self._dwell_ema = 22.0 if opt.rna else 10.0
         self._dwell_lock = threading.Lock()
 
         W = max(opt.query_size, 1)
@@ -240,30 +253,43 @@ class Core:
             # --- model
             if opt.model_file:
                 model = read_model_tsv(opt.model_file)
+            elif opt.rna:
+                log_info("builtin RNA R9 nucleotide model loaded")
+                model = load_builtin_model(MODEL_ID_RNA_R9)
             else:
                 log_info("builtin DNA R9 nucleotide model loaded")
                 model = load_builtin_model(MODEL_ID_DNA_R9)
-            # --- synthesized reference
+            # --- synthesized reference (RNA: forward 3'-end tracks of
+            # min(1.5 q, L+1-k) events, their start offsets recorded)
             self.ref: RefSynth = gen_ref(
-                fasta_path, model, rna=False, query_size=opt.query_size
+                fasta_path, model, rna=opt.rna, query_size=opt.query_size
             )
             # --- device track layout: contig-major, '+' then '-' per
-            # contig (candidate insertion order decides ties, ref
-            # sigfish.c:870-964); every segment aligned to the query size
-            # so the candidate windows are a static reshape
+            # contig, '+' only for RNA (candidate insertion order decides
+            # ties, ref sigfish.c:870-964); every segment aligned to the
+            # query size so the candidate windows are a static reshape
             tracks: list[np.ndarray] = []
             track_meta: list[tuple[int, str]] = []
             for j in range(self.ref.num_ref):
                 tracks.append(self.ref.forward[j])
                 track_meta.append((j, "+"))
-                tracks.append(self.ref.reverse[j])
-                track_meta.append((j, "-"))
+                if self.ref.reverse is not None:
+                    tracks.append(self.ref.reverse[j])
+                    track_meta.append((j, "-"))
             ref_cat, reset, offsets = pad_tracks(tracks, ckpt=opt.ckpt, align=W)
             state = core_state_from_numpy(
                 model.level_mean, model.level_stdv, model.kmer_size,
                 ref_cat, reset, offsets, [t.size for t in tracks], track_meta,
+                self.ref.ref_st_offset,
             )
         else:
+            if opt.rna and state.ref_st_offset is None:
+                # an RNA track starts ref_st_offset bases into its contig;
+                # without the offsets every PAF position would be short
+                raise ValueError(
+                    "an RNA run needs the state's ref_st_offset (each contig's "
+                    "3'-end track start, core_state_from_numpy(..., ref_st_offset))"
+                )
             self.ref = _ref_meta(fasta_path, state)
         self.state = state
         self.ref_cat = state.ref_cat
@@ -287,9 +313,10 @@ class Core:
         # the clip fold's window numbering per qlen (clip_window_bases)
         self._clip_bases: dict[int, tuple[np.ndarray, int]] = {}
         # how many times each device route ran: "oneshot" (sub-)batches,
-        # "chunked" carry chains, "clip_fold" batches whose clipped rows
-        # the chunked route's clip fold served
-        self.routes = {"oneshot": 0, "chunked": 0, "clip_fold": 0}
+        # "clip_pass" of them whose clipped rows the one-shot route's clip
+        # pass served, "chunked" carry chains, "clip_fold" batches whose
+        # clipped rows the chunked route's clip fold served
+        self.routes = {"oneshot": 0, "clip_pass": 0, "chunked": 0, "clip_fold": 0}
         self._routes_lock = threading.Lock()
         # --profile-cpu on the card: CUDA event pairs around each route's
         # device work, read by span_seconds once the run has drained
@@ -390,6 +417,7 @@ class Core:
         clip_rows = np.where((qlens > 0) & (qlens != W))[0]
         if not clip_rows.size:
             return
+        self._count_route("clip_pass")
         rows_dev = torch.from_numpy(clip_rows).to(self.device)
         sub = scores.index_select(0, rows_dev)[:, W - 1 : W - 1 + R]
         qlens_dev = torch.from_numpy(qlens[clip_rows].astype(np.int32)).to(self.device)
@@ -530,7 +558,7 @@ class ReadWork:
     n_events: int = 0
     qstart: int = 0
     qend: int = 0
-    query: np.ndarray | None = None  # z-scored slice
+    query: np.ndarray | None = None  # z-scored (and RNA-reversed) slice
     pa: np.ndarray | None = None  # cached pA conversion (to_pa is pure)
     out: str | None = None
     skip: bool = False  # len_raw_signal==0 or ignored
@@ -555,7 +583,7 @@ def _event_single(core: Core, w: ReadWork) -> ReadWork:
         return w
     if w.pa is None:
         w.pa = w.rec.to_pa()
-    et = get_events(w.pa, rna=False)
+    et = get_events(w.pa, rna=core.opt.rna)
     w.event_start = et.start
     w.event_length = et.length
     w.event_mean = et.mean.copy()
@@ -565,14 +593,34 @@ def _event_single(core: Core, w: ReadWork) -> ReadWork:
     return w
 
 
-def _normalise_single(core: Core, w: ReadWork) -> ReadWork:
+def _normalise_single(core: Core, w: ReadWork, py: int | None = None) -> ReadWork:
     """ref: normalise_single sigfish.c:424-505 (query window + z-score),
-    for DNA with a fixed prefix (-p >= 0) from the read's start."""
+    the window from the read's start: a fixed prefix (-p >= 0), or with
+    -p -1 the first event at or after the polyA tail's end.
+
+    py: the polyA end's sample index when already known (the prefix
+    path's, so the adaptor and polyA scans are not repeated); None =
+    compute here, -1 = computed and failed."""
     if w.skip:
         return w
     opt = core.opt
     n = w.n_events
     start_idx = opt.prefix_size
+    if opt.prefix_size < 0:
+        if py is None:
+            if w.pa is None:
+                w.pa = w.rec.to_pa()
+            py = jnn.detect_polya_end(w.rec.raw_signal, w.pa, pore=jnn.PORE_R9)
+        if py < 0:
+            start_idx = -1
+        else:
+            # first event with start >= py, linear first-match
+            # (ref sigfish.c:405-411)
+            ge = np.nonzero(w.event_start.astype(np.int64) >= py)[0]
+            start_idx = int(ge[0]) if ge.size else -1
+        if start_idx < 0:
+            w.flag_prefix_fail = True
+            start_idx = 50  # fall back, ref sigfish.c:440-447
     end_idx = start_idx + opt.query_size
     if start_idx + 25 > n:  # min query size 25, ref sigfish.c:450-456
         w.skip = True
@@ -591,7 +639,7 @@ def _normalise_single(core: Core, w: ReadWork) -> ReadWork:
 
 
 def _finish_normalise(core: Core, w: ReadWork, start_idx: int, end_idx: int) -> ReadWork:
-    """Window z-score given the decided query window.
+    """Window z-score + RNA reversal given the decided query window.
 
     ref sigfish.c:479-502 (shared by the exact path and the
     prefix-bounded fast path -- identical math on identical inputs)."""
@@ -612,7 +660,10 @@ def _finish_normalise(core: Core, w: ReadWork, start_idx: int, end_idx: int) -> 
         stdv = np.float32(np.sqrt(var))
         sl_norm = (sl - mean) / stdv
     w.event_mean[start_idx:end_idx] = sl_norm
-    w.query = sl_norm.copy()
+    # RNA runs 3' to 5' through the pore: the query is reversed to meet
+    # the forward track (ref sigfish.c:860-867); --invert, which reverses
+    # the reference instead, is refused (item 7c)
+    w.query = sl_norm[::-1].copy() if core.opt.rna else sl_norm.copy()
     assert w.query.size == end_idx - start_idx
     return w
 
@@ -623,16 +674,21 @@ def _prepare_read_prefix(core: Core, w: ReadWork) -> ReadWork:
     The query window only needs events up to qstart + query_size, and
     event detection is a causal left-to-right scan, so eventizing a
     grown signal PREFIX reproduces the leading events bit-exactly
-    (ops/events.py detect_events_prefix safety contract). Falls back to
-    the exact full-signal path for clipped/ignored reads or when no
-    samples would be saved; the output is bit-identical to that path.
+    (ops/events.py detect_events_prefix safety contract). With -p -1 the
+    polyA end py is found first, on the raw signal, and the query starts
+    at the first event at or after it: that answer counts only once an
+    event at or after py lies inside the safe prefix, else the prefix
+    grows. Falls back to the exact full-signal path (handing it py) for
+    clipped/ignored reads or when no samples would be saved; the output
+    is bit-identical to that path.
     """
     opt = core.opt
     if w.pa is None:
         w.pa = w.rec.to_pa()
     pa = w.pa
     n = pa.size
-    w2 = DNA_PARAMS["window_length2"]
+    rna = opt.rna
+    w2 = (RNA_PARAMS if rna else DNA_PARAMS)["window_length2"]
     q = opt.query_size
     if q <= 0:
         # empty query window; the exact path ignores such reads
@@ -640,21 +696,44 @@ def _prepare_read_prefix(core: Core, w: ReadWork) -> ReadWork:
     need_past_start = max(q, 25)  # covers the ignored(<start+25) and
     # too_short(end>n) decisions: n_events >= start + max(q,25) forces
     # both checks to the not-clipped branch, matching the full run
-    start_idx = opt.prefix_size
+
+    if opt.prefix_size >= 0:
+        py = -1
+        start_known = opt.prefix_size
+    else:
+        py = jnn.detect_polya_end(w.rec.raw_signal, pa, pore=jnn.PORE_R9)
+        if py < 0:
+            w.flag_prefix_fail = True
+            start_known = 50  # ref sigfish.c:440-447 fallback
+        else:
+            start_known = -1  # first event at/after py, from the table
 
     # initial samples-per-event guess: per-Core EMA of the measured
-    # density, margin 1.3; a short retry refines the bound from the
-    # observed event table
-    S = int((start_idx + need_past_start + 2) * core._dwell_ema * 1.3)
+    # density (seeded per chemistry), margin 1.3; a short retry refines
+    # the bound from the observed event table
+    dwell = core._dwell_ema
+    if start_known >= 0:
+        S = int((start_known + need_past_start + 2) * dwell * 1.3)
+    else:
+        S = py + int((q + 30) * dwell * 1.3)
     S += 4 * w2 + 64
     for _ in range(4):
         if S >= n:
             break
-        et, n_safe = get_events_prefix(pa[:S], False, S - w2)
+        et, n_safe = get_events_prefix(pa[:S], rna, S - w2)
         if n_safe >= 16:
             starts = et.start[:n_safe].astype(np.int64)
-            needed = start_idx + need_past_start
-            if n_safe >= needed:
+            if start_known < 0:
+                # first event with start >= py, linear first-match like
+                # the reference (sigfish.c:405-407): a match inside the
+                # safe prefix equals the full-table scan's result; no
+                # match yet means the answer is not settled -- grow
+                ge = np.nonzero(starts >= py)[0]
+                start_idx = int(ge[0]) if ge.size else -1
+            else:
+                start_idx = start_known
+            needed = (start_idx if start_idx >= 0 else n_safe) + need_past_start
+            if start_idx >= 0 and n_safe >= needed:
                 # guarded read-modify-write: thread-pool workers update
                 # the EMA concurrently and a lost update would make the
                 # prefix-size estimate nondeterministic run to run
@@ -674,8 +753,11 @@ def _prepare_read_prefix(core: Core, w: ReadWork) -> ReadWork:
             S = int(starts[-1] + missing * d_loc * 1.3) + 4 * w2 + 64
         else:
             S *= 3
-    # exact full-signal path
-    return _normalise_single(core, _event_single(core, w))
+    # exact full-signal path; hand over the polyA result so the
+    # adaptor/polyA scans are not repeated
+    return _normalise_single(
+        core, _event_single(core, w), py=py if opt.prefix_size < 0 else None
+    )
 
 
 def _prepare_read(core: Core, blob: bytes) -> ReadWork:

@@ -149,9 +149,9 @@ def test_cuda_core_without_gpu_raises(pair):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(rna=True), dict(sam=True), dict(dtw_std=True), dict(from_end=True),
+    dict(rna=True, pore="rna004"), dict(sam=True), dict(dtw_std=True), dict(from_end=True),
     dict(full_ref=True), dict(invert=True), dict(secondary=True), dict(pore="r10"),
-    dict(mesh="2x1"), dict(host_stages="device"), dict(prefix_size=-1),
+    dict(mesh="2x1"), dict(host_stages="device"), dict(rna=True, full_ref=True),
 ])
 def test_later_options_raise(pair, kw):
     fa, bl = pair

@@ -414,6 +414,18 @@ def test_wavefront_warps_splits_the_clip_groups():
     assert wf.wavefront_warps(16, 256) > 1
 
 
+@pytest.mark.parametrize("Q,picks", [
+    (256, {16: 4, 256: 4, 257: 2, 512: 2, 1024: 2}),
+    (512, {16: 8, 256: 8, 257: 4, 512: 4, 1024: 4}),
+    (128, {16: 4, 512: 2}),
+    (384, {16: 4, 256: 4, 512: 2}),
+])
+def test_wavefront_warps_follows_the_tables_of_its_q(Q, picks):
+    """The one-shot rule at Q=512 (the direct-RNA run) is read from its
+    own table, Q=256's holds below 512, each capped at what Q builds."""
+    assert {B: wf.wavefront_warps(B, Q) for B in picks} == picks
+
+
 @pytest.mark.parametrize("W", [1, 32, 100, 250, 500])
 def test_clip_start_lanes_never_above_lane(W):
     """The kernel's precondition: shift_queries_for_clip gives every read
