@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one Hopper GPU
 (compute capability 9.0), nvcc and g++. It builds the port's kernels from
-the checkout's sources, then runs seven phases, and fails (exit code 1,
+the checkout's sources, then runs eight phases, and fails (exit code 1,
 no result line) if any of them fails:
 
   1. device   CUDA present with capability (9, 0); prints the card's
@@ -116,6 +116,40 @@ no result line) if any of them fails:
               forced ref_chunk of 32,000 diagonals on the card. Prints
               reads/s and the stage and device seconds of a --profile-cpu
               run.
+  8. surface  the rest of the dtw surface, each run through run_dtw on
+              device="cuda" with its launch counts, reads/s and counters
+              printed: over phase 4's workload --sam (as many records as
+              phase 4's PAF lines; the header and a 96-read subset
+              byte-identical to device="cpu") and --from-end (the same
+              subset check), and eval of phase 4's PAF against a truth PAF
+              of the reads' origins (at least 80% correct); R10 DNA, 1,536
+              reads from the R10 9-mer table over a phase-4-size
+              reference with the kit sqk-lsk114 and no --pore (the log
+              must say R10 was detected, at least 80% mapped over their
+              origin, a 64-read subset byte-identical to the CPU); over
+              phase 7's transcripts and reads, --dtw-std (every one-shot
+              launch the std instance, at least 75% mapped, the whole
+              PAF byte-identical to a forced ref_chunk of 32,000 on the
+              card, which launches the std carry instance; the std
+              instance's ms per B=512, Q=512 launch over the whole
+              reference and its bound, every warps instance and the timed
+              launch bit for bit against one plain run, whose ms is
+              printed too; the std carry instance's ms per 32,000-diagonal
+              segment at each warps instance, each timed launch held to
+              one plain carry launch), --full-ref (its B=512 launch over
+              the whole tracks, about 659k diagonals, timed and held bit
+              for bit to one plain run; at least 75% mapped) and --invert
+              -p 0; RNA004,
+              1,536 reads from the RNA004 9-mer table with the kit
+              sqk-rna004 and -p -1 (detected, at least 75% mapped); then
+              each RNA flag (--dtw-std, also through a forced ref_chunk,
+              --full-ref, --invert -p 0, --from-end -p 0, RNA004) over a
+              small reference (20 transcripts, 64 reads, Q=512) on the
+              card and on the CPU, byte for byte; and the std instances
+              at B=512, Q=512 over it: every one-shot warps instance
+              against the plain version, and a three-segment carry
+              chain (every warps instance and a mixed one) against it and
+              the one-shot launch.
 
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -123,6 +157,7 @@ the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -159,6 +194,13 @@ TX_LEN = (600, 7_000)   # transcript lengths: both sides of gen_ref's min(750, L
 SUBSET7 = 64            # reads checked byte for byte against the CPU path
 CUT3_DIAGS = 24_576     # phase 3's Q=512 checks: the RNA reference's first diagonals
 
+# workload of phase 8: the rest of the dtw surface
+N8_READS = 1_536        # R10 DNA reads over a phase-4-size reference
+SUBSET8 = 64            # R10 reads checked byte for byte against the CPU path
+N8_SMALL_TX = 20        # the small RNA reference of the card-vs-CPU checks
+N8_SMALL_READS = 64
+SMALL_TX_LEN = (600, 2_000)
+
 # ALU probe iterations per launch (the bench's default)
 PROBE_ITERS = 16384
 
@@ -175,8 +217,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.time()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.time() - T_START:.1f} s)", flush=True)
 
 
 def smi_line() -> str:
@@ -189,18 +234,31 @@ def smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def make_workload(d: str, n_bases: int, n_reads: int, seed: int):
-    """A one-contig FASTA and a BLOW5 of pore-model reads drawn from it.
-    Returns (fasta, blow5, truth): truth maps read id -> (contig, strand,
-    start, end) in forward-strand base coordinates."""
+DNA_HEADER = [{"experiment_type": "genomic_dna"}]
+R10_HEADER = [{"experiment_type": "genomic_dna", "sequencing_kit": "sqk-lsk114"}]
+
+
+def make_workload(d: str, n_bases: int, n_reads: int, seed: int, r10: bool = False,
+                  header=None):
+    """A one-contig FASTA and a BLOW5 of pore-model reads drawn from it:
+    R9 DNA, or with r10=True R10 DNA from the R10 9-mer table (header:
+    its header_data, R9's or R10's kit by default). Returns (fasta,
+    blow5, truth): truth maps read id -> (contig, strand, start, end) in
+    forward-strand base coordinates."""
     import numpy as np
 
     from sigfish_tpu_torch.io.blow5 import Slow5Record, Slow5Writer
     from sigfish_tpu_torch.models.genref import _seq_bytes, kmer_ranks, reverse_complement
-    from sigfish_tpu_torch.models.pore_model import MODEL_ID_DNA_R9, load_builtin_model
+    from sigfish_tpu_torch.models.pore_model import (
+        MODEL_ID_DNA_R9,
+        MODEL_ID_DNA_R10,
+        load_builtin_model,
+    )
 
     rng = np.random.default_rng(seed)
-    model = load_builtin_model(MODEL_ID_DNA_R9)
+    model = load_builtin_model(MODEL_ID_DNA_R10 if r10 else MODEL_ID_DNA_R9)
+    if header is None:
+        header = R10_HEADER if r10 else DNA_HEADER
     k = model.kmer_size
     seq = "".join("ACGT"[b] for b in rng.integers(0, 4, n_bases))
     rc = reverse_complement(seq)
@@ -212,7 +270,7 @@ def make_workload(d: str, n_bases: int, n_reads: int, seed: int):
             f.write(seq[o : o + 80] + "\n")
     bl = os.path.join(d, "reads.blow5")
     truth = {}
-    with Slow5Writer(bl, header_data=[{"experiment_type": "genomic_dna"}]) as w:
+    with Slow5Writer(bl, header_data=header) as w:
         for i in range(n_reads):
             # one read in ten is short enough to be clipped: the detector
             # finds about 2.1 events per pore-model level, so 120 levels
@@ -237,29 +295,41 @@ def make_workload(d: str, n_bases: int, n_reads: int, seed: int):
 
 
 RNA_HEADER = [{"experiment_type": "rna", "sequencing_kit": "sqk-rna002"}]
+RNA004_HEADER = [{"experiment_type": "rna", "sequencing_kit": "sqk-rna004"}]
 
 
-def make_rna_workload(d: str, n_tx: int, n_reads: int, seed: int, tx_len=TX_LEN):
+def make_rna_workload(d: str, n_tx: int, n_reads: int, seed: int, tx_len=TX_LEN,
+                      walks=(560, 240), rna004: bool = False, header=None):
     """A FASTA of n_tx seeded random transcripts and a BLOW5 (header
     experiment_type rna) of direct-RNA reads. Each read is an adaptor
     stretch (20 pA, 9,000-14,000 samples), a polyA stretch (62 pA,
     1,000-3,000 samples: inside sigfish's band of the adaptor mean + 30
-    +-20 pA, above the adaptor finder's threshold, below every R9 RNA
-    level), then a transcript's 3' end walked towards 5' through the R9
-    RNA pore model: 560 levels, about 760 events past the polyA. One read
-    in ten (i % 10 == 9) walks 240 levels, about 320 events, fewer than
+    +-20 pA, above the adaptor finder's threshold, below every R9 and
+    RNA004 RNA level), then a transcript's 3' end walked towards 5'
+    through the R9 RNA pore model (with rna004=True the RNA004 9-mer
+    table, and RNA004's kit in the header): walks[0] levels, by default
+    560, about 760 events past the polyA. One read in ten (i % 10 == 9)
+    walks walks[1] levels, by default 240, about 320 events, fewer than
     -q 500, so it is clipped; one in twenty (i % 20 == 4) has no adaptor
     and no polyA, so its query start falls back to event 50 (prefix
-    fail). Returns (fasta, blow5, truth): truth maps read id -> (contig,
-    "+", start, end), the walk's bases."""
+    fail). header: its header_data, R9's or RNA004's by default. The
+    FASTA depends on (n_tx, seed, tx_len) only. Returns (fasta, blow5,
+    truth): truth maps read id -> (contig, "+", start, end), the walk's
+    bases."""
     import numpy as np
 
     from sigfish_tpu_torch.io.blow5 import Slow5Record, Slow5Writer
     from sigfish_tpu_torch.models.genref import _seq_bytes, kmer_ranks
-    from sigfish_tpu_torch.models.pore_model import MODEL_ID_RNA_R9, load_builtin_model
+    from sigfish_tpu_torch.models.pore_model import (
+        MODEL_ID_RNA_R9,
+        MODEL_ID_RNA_RNA004,
+        load_builtin_model,
+    )
 
     rng = np.random.default_rng(seed)
-    model = load_builtin_model(MODEL_ID_RNA_R9)
+    model = load_builtin_model(MODEL_ID_RNA_RNA004 if rna004 else MODEL_ID_RNA_R9)
+    if header is None:
+        header = RNA004_HEADER if rna004 else RNA_HEADER
     k = model.kmer_size
     fa = os.path.join(d, "tx.fa")
     seqs = []
@@ -272,11 +342,11 @@ def make_rna_workload(d: str, n_tx: int, n_reads: int, seed: int, tx_len=TX_LEN)
                 f.write(seq[o : o + 80] + "\n")
     bl = os.path.join(d, "reads.blow5")
     truth = {}
-    with Slow5Writer(bl, header_data=RNA_HEADER) as w:
+    with Slow5Writer(bl, header_data=header) as w:
         for i in range(n_reads):
             name, seq = seqs[int(rng.integers(n_tx))]
             n_kmer = len(seq) + 1 - k
-            walk = min(n_kmer, 240 if i % 10 == 9 else 560)
+            walk = min(n_kmer, walks[1] if i % 10 == 9 else walks[0])
             levels = model.level_mean[kmer_ranks(_seq_bytes(seq[n_kmer - walk :]), k,
                                                  warn_non_acgt=False)][::-1]
             n_ad, n_pa = (0, 0) if i % 20 == 4 else (int(rng.integers(9_000, 14_000)),
@@ -299,7 +369,7 @@ def subset_blow5(bl: str, out: str, keep, header=None) -> None:
     (header: its header_data, genomic_dna by default)."""
     from sigfish_tpu_torch.io.blow5 import Slow5File, Slow5Writer
 
-    header = header or [{"experiment_type": "genomic_dna"}]
+    header = header or DNA_HEADER
     with Slow5File(bl) as src, Slow5Writer(out, header_data=header) as dst:
         for rec in src:
             if rec.read_id in keep:
@@ -1178,6 +1248,291 @@ def main() -> None:
         if not ok:
             fail("the RNA run's chunked route differs from its one-shot route")
 
+        # ------------------------------------------------------------ 8
+        phase("8 dtw surface at full width")
+        from sigfish_tpu_torch import __version__
+        from sigfish_tpu_torch.eval import eval_main
+        from sigfish_tpu_torch.ops import jnn
+        from sigfish_tpu_torch.output import sam_header
+
+        def reset_counts():
+            for f in (wfm.sdtw_wavefront, wfm.sdtw_wavefront_carry):
+                f.launches = f.launches_std = 0
+                f.launches_by_warps = dict.fromkeys(wfm.WARPS, 0)
+            wfm.sdtw_wavefront_carry.launches_start_lanes = 0
+
+        def lines_of(text, ids):
+            by = {ln.split("\t")[0]: ln for ln in text.splitlines()}
+            return "".join(by[r] + "\n" for r in ids if r in by)
+
+        def cuda_run(label, fa_, bl_, n_reads, truth_=None, gate=None, **kw):
+            """One run_dtw over a whole file on the card: its output, Core,
+            seconds and launch counts, printed with reads/s and, with a
+            truth and a gate, the share mapped over the reads' origins."""
+            reset_counts()
+            out, core, dt = run_port(fa_, bl_, "cuda", **kw)
+            counts = dict(oneshot=wfm.sdtw_wavefront.launches,
+                          oneshot_std=wfm.sdtw_wavefront.launches_std,
+                          carry=wfm.sdtw_wavefront_carry.launches,
+                          carry_std=wfm.sdtw_wavefront_carry.launches_std)
+            share = "" if truth_ is None else f", mapped over their origin {overlap_share(out, truth_):.4f}"
+            print(f"{label} on cuda: {core.total_reads} reads, {len(out.splitlines())} lines, "
+                  f"{dt:.3f} s, {core.total_reads / dt:.1f} reads/s end to end; prefix fail "
+                  f"{core.prefix_fail}, too short {core.too_short}, ignored {core.ignored}; "
+                  f"launches {counts}, routes {core.routes}{share}; card: {smi}")
+            if core.total_reads != n_reads:
+                fail(f"{label}: {core.total_reads} reads processed, want {n_reads}")
+            if counts["oneshot"] + counts["carry"] <= 0:
+                fail(f"{label}: the run launched no sDTW kernel")
+            if gate is not None and overlap_share(out, truth_) < gate:
+                fail(f"{label}: under {gate} of the reads map over their origin")
+            return out, core, dt, counts
+
+        def cpu_check(label, fa_, bl_sub, ids, want, **kw):
+            """A CPU run over the subset's reads against the card's lines of
+            those reads, byte for byte."""
+            got, _, cdt = run_port(fa_, bl_sub, "cpu", **kw)
+            ok = got == want
+            print(f"{label}: {len(ids)} reads on cpu vs cuda byte_identical={ok} (cpu {cdt:.1f} s)")
+            if not ok:
+                fail(f"{label}: the card's output differs from the CPU path's")
+
+        # DNA --sam, --from-end and eval over phase 4's workload
+        sam, score, _, _ = cuda_run("--sam", fa, bl, N_READS, state=state, sam=True)
+        hdr = sam_header(score.ref.ref_names, score.ref.ref_lengths, __version__)
+        if len(sam.splitlines()) != n_lines:
+            fail(f"--sam wrote {len(sam.splitlines())} records, phase 4 {n_lines} PAF lines")
+        cpu_sam, ccore, cdt = run_port(fa, sub_bl, "cpu", state=state, sam=True)
+        ok = (sam_header(ccore.ref.ref_names, ccore.ref.ref_lengths, __version__) == hdr
+              and cpu_sam == lines_of(sam, keep))
+        print(f"--sam header ({hdr.count(chr(10))} lines) and records of {SUBSET} reads on cpu vs "
+              f"cuda byte_identical={ok} (cpu {cdt:.1f} s); {len(sam.splitlines())} records, as "
+              f"phase 4's PAF lines")
+        if not ok:
+            fail("--sam: the card's SAM differs from the CPU path's")
+        fe, _, _, _ = cuda_run("--from-end", fa, bl, N_READS, state=state, from_end=True)
+        cpu_check("--from-end", fa, sub_bl, keep, lines_of(fe, keep), state=state, from_end=True)
+
+        truth_paf = os.path.join(work, "truth.paf")
+        test_paf = os.path.join(work, "phase4.paf")
+        with open(truth_paf, "w") as f:
+            for rid, (contig, strand, lo, hi) in truth.items():
+                f.write(f"{rid}\t0\t0\t0\t{strand}\t{contig}\t{N_BASES}\t{lo}\t{hi}\t0\t0\t60"
+                        "\ttp:A:P\n")
+        with open(test_paf, "w") as f:
+            f.write(paf)
+        ev = io.StringIO()
+        stat = eval_main(truth_paf, test_paf, out=ev)
+        print("eval of phase 4's PAF against the reads' origins:\n  "
+              + "\n  ".join(ln for ln in ev.getvalue().splitlines()[1:7]))
+        if stat.correct < 0.8 * N_READS:
+            fail(f"eval: {stat.correct} of {N_READS} reads correct, under 80%")
+
+        # R10 DNA: a phase-4-size reference, reads from the R10 9-mer table,
+        # the kit sqk-lsk114 in the header and no --pore
+        work8 = os.path.join(work, "r10")
+        os.makedirs(work8)
+        t0 = time.time()
+        fa10, bl10, truth10 = make_workload(work8, N_BASES, N8_READS, SEED + 8, r10=True)
+        log = io.StringIO()
+        with contextlib.redirect_stderr(log):
+            state10, _ = core_state(fa10, bl10)
+        detected = [ln for ln in log.getvalue().splitlines() if "R10" in ln]
+        print(f"R10 workload: {N8_READS} reads over {N_BASES} bases, k={state10.model.kmer_size}, "
+              f"made in {time.time() - t0:.2f} s; the log: {detected}")
+        if not any("Detected R10 data" in ln for ln in detected) or state10.model.kmer_size != 9:
+            fail("the R10 header was not detected, or the R10 9-mer model not loaded")
+        paf10, core10, _, _ = cuda_run("R10 DNA", fa10, bl10, N8_READS, truth10, 0.8, state=state10)
+        if core10.pore_flag != jnn.PORE_R10:
+            fail("the R10 run's polyA/pore flag is not R10")
+        keep10 = [f"read{i:05d}" for i in range(SUBSET8)]
+        sub10 = os.path.join(work8, "subset.blow5")
+        subset_blow5(bl10, sub10, set(keep10), header=R10_HEADER)
+        cpu_check("R10 DNA", fa10, sub10, keep10, lines_of(paf10, keep10), state=state10)
+
+        # direct RNA over phase 7's transcripts: --dtw-std (the std one-shot
+        # instance, then through a forced ref_chunk the std carry instance),
+        # --full-ref, --invert -p 0, and RNA004
+        std_opt = dict(RNA_OPT, dtw_std=True)
+        std_paf, std_core, _, std_counts = cuda_run("--dtw-std", fa7, bl7, N7_READS, truth7, 0.75,
+                                                    state=state7, **std_opt)
+        launches_std = std_counts["oneshot_std"]
+        if launches_std <= 0 or launches_std != std_counts["oneshot"]:
+            fail(f"--dtw-std launched the std one-shot instance {launches_std} times of "
+                 f"{std_counts['oneshot']}")
+        ch_paf, ch_core, _, ch_counts = cuda_run("--dtw-std, ref_chunk=32,000", fa7, bl7, N7_READS,
+                                                 state=state7, ref_chunk=32_000, **std_opt)
+        carry_launches_std = ch_counts["carry_std"]
+        ok = ch_paf == std_paf and ch_counts["oneshot"] == 0 and carry_launches_std > 0
+        print(f"--dtw-std PAF of all {N7_READS} reads, chunked (std carry launches "
+              f"{carry_launches_std}) vs one-shot on cuda: byte_identical={ok}")
+        if not ok:
+            fail("--dtw-std: the chunked route's PAF differs from the one-shot route's")
+
+        def median_ms_out(fn, reps):
+            """median_ms of fn(), and the last timed call's result."""
+            last = [None]
+
+            def call():
+                last[0] = fn()
+            return median_ms(call, reps), last[0]
+
+        # the std instance at the route's shape: B=512, Q=512 over phase 7's
+        # whole reference, with the start lanes of one row in ten clipped:
+        # the plain version timed once, every warps instance and the timed
+        # launch held to its output bit for bit
+        rng8 = np.random.default_rng(SEED + 8)
+        qlens8 = np.full(BATCH, W7, np.int32)
+        qlens8[9::10] = rng8.integers(150, W7, size=qlens8[9::10].size)
+        q8, qlens8, _ = layout.make_query_batch(
+            [rng8.standard_normal(int(n)).astype(np.float32) for n in qlens8], pad_q=pad_q7)
+        q8, fs8 = layout.shift_queries_for_clip(q8, qlens8, W7 - 1)
+        q8, fs8 = td(q8), td(fs8)
+        plain_ms_std, want = once_ms(lambda: wfm.wavefront_plain(q8, ypad7, rspad7, W7 - 1, fs8, True))
+        w_std = wfm.wavefront_warps(BATCH, pad_q7)
+        ms_std, timed = median_ms_out(lambda: wfm.sdtw_wavefront(
+            q8, ypad7, rspad7, W7 - 1, start_lanes=fs8, std=True), 5)
+        for w in warps_q7 + [None]:
+            got = timed if w is None else wfm.sdtw_wavefront(q8, ypad7, rspad7, W7 - 1,
+                                                             start_lanes=fs8, std=True, warps=w)
+            ok = bits_equal(got, want)
+            max_err = max(max_err, abs_err(got, want))
+            which = f"warps={w_std}, the timed launch" if w is None else \
+                f"warps={w}{'*' if w == w_std else ''}"
+            print(f"wavefront std=True B={BATCH} Q={pad_q7} D={D7} {which}: bitwise_equal={ok}")
+            if not ok:
+                fail(f"wavefront std kernel ({which}) differs from its plain version at the "
+                     f"--dtw-std route's shape (B={BATCH}, Q={pad_q7}, D={D7})")
+        del got, want, timed
+        bound_std_ms, bound_std_by = bound(
+            OPS_PER_CELL * cells7, 4 * (BATCH * pad_q7 + 2 * D7 + BATCH * D7 + BATCH), issue)
+        print(f"wavefront std=True B={BATCH} Q={pad_q7} D={D7} warps={w_std}, start lanes: "
+              f"{ms_std:.3f} ms per launch (median of 5), {cells7 / ms_std / 1e6:.1f} Gcell/s, bound "
+              f"{bound_std_ms:.3f} ms by {bound_std_by} ({bound_std_ms / ms_std:.1%} of it), "
+              f"{launches_std} launches on the --dtw-std run; std=False {ms7:.3f} ms (phase 5); "
+              f"plain version {plain_ms_std:.1f} ms; card: {smi}")
+
+        # the std carry instance at the chunked route's shape: B=512, Q=512,
+        # the first 32,000-diagonal segment of phase 7's reference from a
+        # fresh state, with those start lanes: each warps instance timed and
+        # its timed launch held to one plain carry launch (scores, and the
+        # state under carry_state_mask)
+        valid7 = layout.build_column_maps(state7.offsets, R7, track_sizes=state7.track_sizes)[1]
+        yps7, rps7, _, Ds7, _ = prepare_chunked_inputs(state7.ref_cat, state7.reset, valid7,
+                                                       pad_q7, W7, target=32768)
+        y_seg, r_seg = td(yps7[0]), td(rps7[0])
+        st0 = wfm.carry_fresh_state(BATCH, pad_q7, dev)
+        c_plain_ms_std, c_want = once_ms(
+            lambda: wfm.wavefront_plain(q8, y_seg, r_seg, W7 - 1, fs8, True, *st0))
+        masks8 = wfm.carry_state_mask(fs8, BATCH, pad_q7, dev)
+        c_pick7 = wfm.carry_warps(BATCH, pad_q7)
+        c_std = {}
+        for w in warps_q7:
+            c_std[w], out = median_ms_out(lambda: wfm.sdtw_wavefront_carry(
+                q8, y_seg, r_seg, *st0, W7 - 1, fs8, True, warps=w), 5)
+            ok = bits_equal(out[0], c_want[0]) and all(
+                bits_equal(a[m], b[m]) for a, b, m in zip(out[1:], c_want[1:], masks8))
+            carry_err = max(carry_err, abs_err(out[0], c_want[0]),
+                            *(abs_err(a[m], b[m]) for a, b, m in zip(out[1:], c_want[1:], masks8)))
+            print(f"carry std=True B={BATCH} Q={pad_q7} Ds={Ds7} warps={w}"
+                  f"{'*' if w == c_pick7 else ''}, the timed launch: scores and masked state "
+                  f"bitwise_equal={ok}")
+            if not ok:
+                fail(f"carry std kernel (warps={w}) differs from its plain version at the chunked "
+                     f"--dtw-std route's shape (B={BATCH}, Q={pad_q7}, Ds={Ds7})")
+        del out, c_want
+        c_cells7 = BATCH * pad_q7 * Ds7
+        c_std_bound_ms, c_std_bound_by = bound(
+            OPS_PER_CELL * c_cells7,
+            4 * (BATCH * pad_q7 + 2 * Ds7 + BATCH * Ds7 + 2 * (2 * BATCH * pad_q7 + 2 * pad_q7)
+                 + BATCH), issue)
+        c_ms_std = c_std[c_pick7]
+        print(f"carry std=True B={BATCH} Q={pad_q7} Ds={Ds7}, start lanes, fresh state: "
+              + ", ".join(f"warps={w}{'*' if w == c_pick7 else ''} {t:.3f} ms" for w, t in c_std.items())
+              + f" (median of 5; * = carry_warps' pick); bound {c_std_bound_ms:.3f} ms by "
+              f"{c_std_bound_by} ({c_std_bound_ms / c_ms_std:.1%} of it at the pick), plain version "
+              f"{c_plain_ms_std:.1f} ms, {carry_launches_std} launches on the chunked --dtw-std run; "
+              f"card: {smi}")
+        del y_seg, r_seg, st0, yps7, rps7
+
+        # --full-ref: every transcript's whole track, so D is about four
+        # times phase 7's. Its launch (std=False, those start lanes) timed
+        # at that D and held bit for bit to one plain run
+        state_f, _ = core_state(fa7, bl7, full_ref=True, **RNA_OPT)
+        ypf, rpf, Df = layout.prepare_wavefront_inputs(state_f.ref_cat, state_f.reset, pad_q7)
+        ypf, rpf = td(ypf), td(rpf)
+        plain_ms_full, want = once_ms(lambda: wfm.wavefront_plain(q8, ypf, rpf, W7 - 1, fs8))
+        ms_full, got = median_ms_out(lambda: wfm.sdtw_wavefront(q8, ypf, rpf, W7 - 1,
+                                                                start_lanes=fs8), 3)
+        ok = bits_equal(got, want)
+        max_err = max(max_err, abs_err(got, want))
+        del got, want, ypf, rpf, q8, fs8
+        cells_f = BATCH * pad_q7 * Df
+        bound_full_ms, bound_full_by = bound(
+            OPS_PER_CELL * cells_f, 4 * (BATCH * pad_q7 + 2 * Df + BATCH * Df + BATCH), issue)
+        print(f"wavefront --full-ref B={BATCH} Q={pad_q7} D={Df} warps={w_std}, start lanes: "
+              f"{ms_full:.3f} ms per launch (median of 3), {cells_f / ms_full / 1e6:.1f} Gcell/s, "
+              f"bound {bound_full_ms:.3f} ms by {bound_full_by} ({bound_full_ms / ms_full:.1%} of "
+              f"it), plain version {plain_ms_full:.1f} ms; the timed launch bitwise_equal={ok}; "
+              f"card: {smi}")
+        if not ok:
+            fail(f"wavefront kernel differs from its plain version at the --full-ref shape "
+                 f"(B={BATCH}, Q={pad_q7}, D={Df})")
+        cuda_run("--full-ref", fa7, bl7, N7_READS, truth7, 0.75, state=state_f, full_ref=True,
+                 **RNA_OPT)
+        inv_opt = dict(rna=True, query_size=W7, prefix_size=0, invert=True)
+        cuda_run("--invert -p 0", fa7, bl7, N7_READS, **inv_opt)
+
+        work84 = os.path.join(work, "rna004")
+        os.makedirs(work84)
+        fa04, bl04, truth04 = make_rna_workload(work84, N7_TX, N7_READS, SEED + 7, rna004=True)
+        log = io.StringIO()
+        with contextlib.redirect_stderr(log):
+            paf04, core04, _, _ = cuda_run("RNA004", fa04, bl04, N7_READS, truth04, 0.75, **RNA_OPT)
+        print("\n".join(ln for ln in log.getvalue().splitlines() if "RNA004" in ln))
+        if core04.pore_flag != jnn.PORE_RNA004 or "Detected RNA004 data" not in log.getvalue():
+            fail("the RNA004 header was not detected")
+
+        # card vs CPU for the RNA flags, on a small reference (the CPU's plain
+        # loop runs one diagonal at a time): 20 transcripts, 64 reads, Q=512
+        t0 = time.time()
+        small, small4 = os.path.join(work, "small"), os.path.join(work, "small004")
+        os.makedirs(small)
+        os.makedirs(small4)
+        fa_s, bl_s, _ = make_rna_workload(small, N8_SMALL_TX, N8_SMALL_READS, SEED + 80,
+                                          tx_len=SMALL_TX_LEN)
+        fa_s4, bl_s4, _ = make_rna_workload(small4, N8_SMALL_TX, N8_SMALL_READS, SEED + 80,
+                                            tx_len=SMALL_TX_LEN, rna004=True)
+        print(f"small RNA workloads: {N8_SMALL_READS} reads over {N8_SMALL_TX} transcripts, R9 and "
+              f"RNA004, made in {time.time() - t0:.2f} s")
+        ids = [f"read{i:05d}" for i in range(N8_SMALL_READS)]
+        for label, fa_, bl_, kw in (
+            ("--dtw-std", fa_s, bl_s, std_opt),
+            ("--dtw-std, ref_chunk=4,000", fa_s, bl_s, dict(std_opt, ref_chunk=4_000)),
+            ("--full-ref", fa_s, bl_s, dict(RNA_OPT, full_ref=True)),
+            ("--invert -p 0", fa_s, bl_s, inv_opt),
+            ("--from-end -p 0", fa_s, bl_s, dict(inv_opt, invert=False, from_end=True)),
+            ("RNA004", fa_s4, bl_s4, RNA_OPT),
+        ):
+            out, _, _, _ = cuda_run(f"small {label}", fa_, bl_, N8_SMALL_READS, **kw)
+            cpu_check(f"small {label}", fa_, bl_, ids, out, **kw)
+
+        # the std instances bit for bit at B=512, Q=512 over the small
+        # reference: every one-shot warps instance against the plain version,
+        # and a carry chain of three segments against the one-shot launch
+        st_s, pq_s = core_state(fa_s, bl_s, **std_opt)
+        yp_s, rp_s, D_s = layout.prepare_wavefront_inputs(st_s.ref_cat, st_s.reset, pq_s)
+        yp_s, rp_s = td(yp_s), td(rp_s)
+        q8, ql8, _ = layout.make_query_batch(
+            [rng8.standard_normal(int(n)).astype(np.float32) for n in qlens8], pad_q=pq_s)
+        q8, fs8 = (td(a) for a in layout.shift_queries_for_clip(q8, ql8, W7 - 1))
+        got_std, err = check_warps("std, Q=512 small reference", q8, fs8, True, yp_s, rp_s, W7 - 1)
+        max_err = max(max_err, err)
+        carry_err = max(carry_err, check_carry("std, Q=512 small reference", q8, fs8, True, got_std,
+                                               [0, D_s // 3, 2 * D_s // 3 + 7, D_s], yp_s, rp_s,
+                                               W7 - 1))
+        del got_std, q8, fs8, yp_s, rp_s
+
         # the carry entry times the instance phase 6 launched (every launch
         # with start lanes, checked above); the start lanes add B i32 reads
         c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes + 4 * BATCH, issue)
@@ -1203,6 +1558,14 @@ def main() -> None:
                 "bound_by_q512": bound7_by,
                 "warps_q512": w7,
                 "ms_by_warps_q512": {str(w): t for w, t in table7[BATCH].items()},
+                "launches_std": launches_std,
+                "ms_std_q512": ms_std,
+                "plain_ms_std_q512": plain_ms_std,
+                "bound_ms_std_q512": bound_std_ms,
+                "diags_full_ref": Df,
+                "ms_full_ref_q512": ms_full,
+                "plain_ms_full_ref_q512": plain_ms_full,
+                "bound_ms_full_ref_q512": bound_full_ms,
             },
             {
                 "name": "sdtw_wavefront_carry",
@@ -1222,6 +1585,11 @@ def main() -> None:
                 "ms_no_start_lanes": c_ms_fs0,
                 "ms_by_warps": carry_bench["table"][str(BATCH)],
                 "ms_by_warps_start_lanes": carry_bench["b512_start_lanes"],
+                "launches_std": carry_launches_std,
+                "ms_std_q512": c_ms_std,
+                "plain_ms_std_q512": c_plain_ms_std,
+                "bound_ms_std_q512": c_std_bound_ms,
+                "ms_std_q512_by_warps": {str(w): t for w, t in c_std.items()},
             },
             {
                 "name": "alu_peak",
@@ -1240,6 +1608,7 @@ def main() -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    print(f"all phases done in {time.time() - T_START:.1f} s")
     print(json.dumps(result))
     print(smi)
     print(json.dumps({"ok": True, "device": {

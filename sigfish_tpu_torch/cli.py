@@ -1,14 +1,15 @@
-"""Command-line interface: `python -m sigfish_tpu_torch.cli dtw`.
+"""Command-line interface: `python -m sigfish_tpu_torch.cli dtw|eval`.
 
-The `dtw` option table of sigfish_tpu/cli.py, restricted to what this
-slice of the port serves (R9 DNA and direct RNA subsequence DTW, PAF
-out, one device), plus --device. The flags of later slices, and the `eval` command, are
-accepted and raise NotImplementedError naming the ROADMAP.md item that
-brings them. --accel and --engine choose among the JAX package's
-engines; the port picks its path with --device, so an explicit value of
-either is an error that names --device.
+The `dtw` option table of sigfish_tpu/cli.py, plus --device, and its
+`eval` subcommand. Every single-device dtw flag with host stages is
+served; the flags of later slices (--host-stages device, --mesh,
+--trace and the multi-host flags) are accepted and raise
+NotImplementedError naming the ROADMAP.md item that brings them. --accel
+and --engine choose among the JAX package's engines; the port picks its
+path with --device, so an explicit value of either is an error that
+names --device.
 
-ref: sigfish src/main.c (dispatch), src/dtw_main.c.
+ref: sigfish src/main.c (dispatch), src/dtw_main.c, src/eval.c:380-445.
 """
 
 from __future__ import annotations
@@ -59,21 +60,21 @@ def make_dtw_parser(prog: str = "sigfish_tpu_torch dtw") -> argparse.ArgumentPar
     p.add_argument("--meth-model", default=None, help=argparse.SUPPRESS)  # parsed, unused (parity)
     p.add_argument("-w", "--window", default=None, help=argparse.SUPPRESS)  # vestigial (parity, ref dtw_main.c:63)
     p.add_argument("--rna", action="store_true", help="the dataset is direct RNA")
-    p.add_argument("-b", "--prefix", "-p", dest="prefix", type=int, default=50, help="events to trim at query start [50]")
+    p.add_argument("-b", "--prefix", "-p", dest="prefix", type=int, default=50, help="events to trim at query start; -1 = autodetect (RNA) [50]")
     p.add_argument("-q", "--query-size", type=int, default=250, help="number of events in query signal to align [250]")
     p.add_argument("--debug-break", type=int, default=-1, help="break after this many batches")
-    p.add_argument("--dtw-std", action="store_true", help="use standard DTW instead of subsequence (not served yet)")
-    p.add_argument("--invert", action="store_true", help="reverse the reference events instead of query (not served yet)")
-    p.add_argument("--secondary", type=_yes_no, default=False, metavar="yes|no", help="print secondary mappings (not served yet)")
-    p.add_argument("--full-ref", action="store_true", help="map to the full reference (not served yet)")
-    p.add_argument("--from-end", action="store_true", help="map the end portion of the query (not served yet)")
+    p.add_argument("--dtw-std", action="store_true", help="use standard DTW instead of subsequence (RNA only)")
+    p.add_argument("--invert", action="store_true", help="reverse the reference events instead of query (RNA only)")
+    p.add_argument("--secondary", type=_yes_no, default=False, metavar="yes|no", help="print secondary mappings (parsed; never printed, parity with reference)")
+    p.add_argument("--full-ref", action="store_true", help="map to the full reference (RNA only)")
+    p.add_argument("--from-end", action="store_true", help="map the end portion of the query")
     p.add_argument("--profile-cpu", type=_yes_no, default=False, metavar="yes|no", help="process section by section with per-stage timers")
     p.add_argument("--accel", type=_yes_no, default=None, metavar="yes|no", help="the JAX package's engine choice; this port uses --device instead")
     p.add_argument("--engine", choices=["pallas", "scan", "native"], default=None, help="the JAX package's engine choice; this port uses --device instead")
     p.add_argument("--host-stages", choices=["host", "device"], default="host", help="where eventization runs (only host is served yet)")
     p.add_argument("--ref-chunk", type=int, default=0, metavar="INT", help="reference-axis chunking: 0 auto (past 2^20 columns), -1 never, N>0 always, in segments of about N diagonals [0]")
-    p.add_argument("-a", "--sam", action="store_true", help="output in SAM format (not served yet)")
-    p.add_argument("--pore", choices=["r9", "r10", "rna004"], default=None, help="pore chemistry [auto] (only r9 is served yet)")
+    p.add_argument("-a", "--sam", action="store_true", help="output in SAM format")
+    p.add_argument("--pore", choices=["r9", "r10", "rna004"], default=None, help="pore chemistry [auto]")
     p.add_argument("--ckpt", type=int, default=512, help="reference padding stride [512]")
     p.add_argument("--mesh", default=None, metavar="DPxTP", help="device mesh (not served yet)")
     p.add_argument("--trace", default=None, metavar="DIR", help="write a profiler trace of the run to DIR (not served yet)")
@@ -99,8 +100,13 @@ def dtw_main(argv: list[str]) -> int:
             p.error("Inversion is only available for RNA.")
         if args.full_ref:
             p.error("--full-ref is only available for RNA.")
-    if args.prefix < 0 and not (args.rna or args.pore == "rna004"):
-        p.error("DNA does not support auto query start detection.")
+    if args.prefix < 0:
+        if not (args.rna or args.pore == "rna004"):
+            p.error("DNA does not support auto query start detection.")
+        if args.invert:
+            p.error("Inversion is not compatible with auto query start detection.")
+        if args.from_end:
+            p.error("Mapping from query end is not compatible with auto query start detection.")
     if args.query_size < 0:
         p.error(f"Query size should larger than 0. You entered {args.query_size}")
     if args.batchsize < 1:
@@ -108,6 +114,7 @@ def dtw_main(argv: list[str]) -> int:
     if args.threads < 1:
         p.error(f"Number of threads should larger than 0. You entered {args.threads}")
 
+    from .output import sam_header
     from .runtime.pipeline import Core, Options, _later, run_dtw
 
     for flag, value in (("--accel", args.accel), ("--engine", args.engine)):
@@ -149,6 +156,8 @@ def dtw_main(argv: list[str]) -> int:
     opt.check_slice()  # before -o is opened (and truncated)
     out_fp = sys.stdout if args.output in (None, "-") else open(args.output, "w")
     core = Core(args.genome, args.reads, opt)
+    if opt.sam:
+        out_fp.write(sam_header(core.ref.ref_names, core.ref.ref_lengths, __version__))
     run_dtw(core, out_fp)
 
     # final report, ref dtw_main.c:331-345 + main.c:98-99
@@ -177,6 +186,24 @@ def dtw_main(argv: list[str]) -> int:
     return 0
 
 
+def eval_cli(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="sigfish_tpu_torch eval")
+    p.add_argument("truth", help="truth PAF (e.g. from minimap2)")
+    p.add_argument("test", help="test PAF")
+    p.add_argument("-o", "--output", default=None)
+    p.add_argument("--secondary", type=_yes_no, default=True, metavar="yes|no", help="consider secondary mappings")
+    p.add_argument("--tid-only", action="store_true", help="consider reference name and strand only")
+    p.add_argument("--version", action="version", version=f"sigfish_tpu_torch {__version__}")
+    args = p.parse_args(argv)
+    from .eval import eval_main
+
+    out = sys.stdout if args.output in (None, "-") else open(args.output, "w")
+    eval_main(args.truth, args.test, sec=args.secondary, tid_only=args.tid_only, out=out)
+    if out is not sys.stdout:
+        out.close()
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
@@ -184,7 +211,7 @@ def main(argv: list[str] | None = None) -> int:
             "Usage: python -m sigfish_tpu_torch.cli <command> [options]\n\n"
             "command:\n"
             "         dtw          Map raw signals to a reference via subsequence DTW\n"
-            "         eval         Evaluate a mapping against a truth set (not served yet)\n"
+            "         eval         Evaluate a PAF against a truthset PAF\n"
             "         --version    Print version\n"
         )
         return 0 if argv else 1
@@ -192,16 +219,11 @@ def main(argv: list[str] | None = None) -> int:
     if cmd in ("--version", "-V"):
         print(f"sigfish_tpu_torch {__version__}")
         return 0
-    if cmd == "eval":
-        from .runtime.pipeline import _later
-
-        log_error(str(_later("the eval command", "eval")))
-        return 1
-    if cmd != "dtw":
+    if cmd not in ("dtw", "eval"):
         sys.stderr.write(f"[main] Unknown command {cmd}\n")
         return 1
     try:
-        return dtw_main(rest)
+        return dtw_main(rest) if cmd == "dtw" else eval_cli(rest)
     except (FileNotFoundError, IsADirectoryError) as e:
         # reference style: a single ERROR line + EXIT_FAILURE
         log_error(f"{e.strerror}: {e.filename}")

@@ -41,6 +41,11 @@ read b holds the columns of track t whose local index u has u // qlen_b
 same strict `<` merge keeps the earlier part's first minimum. The result
 is topk_candidates(reindex=False) over the one-shot row, bit for bit.
 
+--dtw-std runs the same chain with std=True, and CornerFold gathers
+each track's corner (the emitted row at the track's last column) from
+the segment that holds it: the one-shot corners, bit for bit, with no
+(B, D) buffer and no host DP at any reference size.
+
 The segment loop is on the host: segment offsets are Python ints, and
 the launches queue on one stream, each seeing the previous one's state.
 The accumulators are updated in place.
@@ -255,6 +260,33 @@ class ClipFold:
         return _pack(ts, tp)
 
 
+class CornerFold:
+    """The --dtw-std corners of a carry chain: for every read, the
+    emitted row at one diagonal per track, gathered from the segment
+    that holds it into a (B, T) buffer, `corners`.
+
+    diags: (T,) the corner diagonals on the host (Core.std_corner_diags:
+    a track's last column + W - 1), each inside the chain's diagonals;
+    Ds: the segment length."""
+
+    def __init__(self, B: int, diags: np.ndarray, Ds: int, device):
+        diags = np.asarray(diags, dtype=np.int64)
+        self.corners = torch.full((B, diags.size), BIG, dtype=torch.float32, device=device)
+        seg = diags // Ds
+        # segment -> (its tracks, their diagonals inside it)
+        self.plan = {}
+        for s in np.unique(seg).tolist():
+            t = np.nonzero(seg == s)[0]
+            self.plan[s] = (torch.from_numpy(t).to(device),
+                            torch.from_numpy(diags[t] - s * Ds).to(device))
+
+    def update(self, s: int, scores: torch.Tensor) -> None:
+        """Copy the corners that lie in segment s's (B, Ds) scores."""
+        if s in self.plan:
+            tracks, local = self.plan[s]
+            self.corners.index_copy_(1, tracks, scores.index_select(1, local))
+
+
 def carry_chain(
     queries: torch.Tensor,    # (B, Q) f32
     ypad_seg: torch.Tensor,   # (S, 1, Ds) f32
@@ -262,17 +294,18 @@ def carry_chain(
     lane: int,                # W - 1
     folds: list,
     start_lanes: torch.Tensor | None = None,
+    std: bool = False,        # boundary-anchored DTW (--dtw-std)
 ) -> None:
     """Stream the reference through the carry kernel, one launch per
     segment from a fresh state, and hand each segment's (B, Ds) scores
-    to every fold's update(s, scores). The same start lanes go to every
-    launch."""
+    to every fold's update(s, scores). The same start lanes and std go
+    to every launch."""
     B, Q = queries.shape
     a1, a2, ywin, rswin = carry_fresh_state(B, Q, queries.device)
     for s in range(ypad_seg.shape[0]):
         scores, a1, a2, ywin, rswin = sdtw_wavefront_carry(
             queries, ypad_seg[s], rspad_seg[s], a1, a2, ywin, rswin,
-            lane, start_lanes=start_lanes,
+            lane, start_lanes=start_lanes, std=std,
         )
         for fold in folds:
             fold.update(s, scores)

@@ -244,8 +244,9 @@ def sdtw_wavefront(
     one warp per read the rows below a start lane differ from the plain
     version's, so a start lane above lane would change the emitted row.
     CPU tensors run wavefront_plain; CUDA tensors launch the kernel
-    (counted in sdtw_wavefront.launches, and per warp count in
-    sdtw_wavefront.launches_by_warps) or raise."""
+    (counted in sdtw_wavefront.launches, per warp count in
+    sdtw_wavefront.launches_by_warps and, with std=True, in
+    sdtw_wavefront.launches_std) or raise."""
     _check(queries, ypad, rspad, lane, start_lanes)
     B, Q = queries.shape
     _check_warps("sdtw_wavefront", warps, Q)
@@ -278,11 +279,13 @@ def sdtw_wavefront(
         raise RuntimeError(f"sdtw_wavefront: CUDA launch failed (cudaError {err})")
     sdtw_wavefront.launches += 1
     sdtw_wavefront.launches_by_warps[warps] += 1
+    sdtw_wavefront.launches_std += bool(std)
     return out
 
 
 sdtw_wavefront.launches = 0
 sdtw_wavefront.launches_by_warps = dict.fromkeys(WARPS, 0)
+sdtw_wavefront.launches_std = 0
 
 
 def sdtw_wavefront_carry(
@@ -317,9 +320,10 @@ def sdtw_wavefront_carry(
     ever reads, so a chain may mix warp counts from launch to launch.
     CPU tensors run wavefront_plain; CUDA tensors launch the kernel's
     carry mode, counted in sdtw_wavefront_carry.launches, per warp count
-    in sdtw_wavefront_carry.launches_by_warps and, when start lanes are
-    given (the instance without FS0), in
-    sdtw_wavefront_carry.launches_start_lanes, or raise."""
+    in sdtw_wavefront_carry.launches_by_warps, when start lanes are
+    given (the instance without FS0) in
+    sdtw_wavefront_carry.launches_start_lanes and, with std=True, in
+    sdtw_wavefront_carry.launches_std, or raise."""
     _check(queries, ypad, rspad, lane, start_lanes)
     B, Q = queries.shape
     _check_warps("sdtw_wavefront_carry", warps, Q)
@@ -366,12 +370,14 @@ def sdtw_wavefront_carry(
     sdtw_wavefront_carry.launches += 1
     sdtw_wavefront_carry.launches_by_warps[warps] += 1
     sdtw_wavefront_carry.launches_start_lanes += sl is not None
+    sdtw_wavefront_carry.launches_std += bool(std)
     return (out, *state_out)
 
 
 sdtw_wavefront_carry.launches = 0
 sdtw_wavefront_carry.launches_by_warps = dict.fromkeys(WARPS, 0)
 sdtw_wavefront_carry.launches_start_lanes = 0
+sdtw_wavefront_carry.launches_std = 0
 
 _lib: ctypes.CDLL | None = None
 

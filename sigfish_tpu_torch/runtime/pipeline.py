@@ -1,4 +1,4 @@
-"""The dtw pipeline: stream BLOW5 batches, map on the GPU, emit PAF.
+"""The dtw pipeline: stream BLOW5 batches, map on the GPU, emit PAF/SAM.
 
 The single-device subsequence path of sigfish_tpu/runtime/pipeline.py,
 with its names and order kept:
@@ -16,21 +16,29 @@ with its names and order kept:
                        Past CHUNK_AUTO_COLS reference columns (or with
                        --ref-chunk N > 0) the reference streams through
                        the kernel's carry mode in segments instead
-                       (ops/chunked_ref.py), clipped reads included
+                       (ops/chunked_ref.py), clipped reads included.
+                       --dtw-std runs the kernel's std instance and
+                       gathers each track's corner on the device (one-shot
+                       or chunked, CornerFold); only (B, ntracks) comes back
   backtrack/
-  output        host   winner path recompute + PAF lines in batch order
+  output        host   winner path recompute + PAF or SAM lines in batch
+                       order
 
 Device selection: Options.device ("cuda" by default). CUDA tensors go
 through the kernel, CPU tensors (device="cpu") through its plain
 PyTorch version. There is no engine choice and no silent fallback:
 Core raises when CUDA is asked for and absent.
 
-This port serves R9 subsequence DTW with PAF output on one device, over
-references of any length (one-shot or chunked): DNA, and direct RNA
-(--rna, or a header's experiment_type rna) with its 3'-end tracks,
-reversed queries and, with -p -1, the query start found after the polyA
-tail on the host (ops/jnn.detect_polya_end). Every other option raises
-NotImplementedError naming the ROADMAP.md item (queue 1) that brings it.
+This port serves the single-device dtw surface of the JAX package with
+host stages, over references of any length (one-shot or chunked): R9 and
+R10 DNA, R9 and RNA004 direct RNA (--rna, or a header's experiment_type
+rna; the chemistry from the header's sequencing_kit or --pore) with its
+3'-end tracks, reversed queries and, with -p -1, the query start found
+after the polyA tail on the host (ops/jnn.detect_polya_end); --sam,
+--from-end, --secondary (parsed, never printed, as in the reference),
+--dtw-std, --full-ref and --invert. The rest (--host-stages device,
+--mesh) raises NotImplementedError naming the ROADMAP.md item (queue 1)
+that brings it.
 """
 
 from __future__ import annotations
@@ -50,17 +58,20 @@ from ..io.blow5 import Slow5File, Slow5Record
 from ..io.fasta import read_fasta
 from ..models.genref import RefSynth, gen_ref
 from ..models.pore_model import (
+    MODEL_ID_DNA_R10,
     MODEL_ID_DNA_R9,
     MODEL_ID_RNA_R9,
+    MODEL_ID_RNA_RNA004,
     load_builtin_model,
     read_model_tsv,
 )
 from ..ops import jnn
-from ..ops.candidates import compute_mapq
+from ..ops.candidates import compute_mapq, rank_candidates
 from ..ops.candidates_dev import topk_candidates, window_top5
 from ..ops.chunked_ref import (
     CHUNK_AUTO_COLS,
     ClipFold,
+    CornerFold,
     WindowFold,
     carry_chain,
     clip_window_bases,
@@ -76,26 +87,18 @@ from ..ops.layout import (
     shift_queries_for_clip,
     unpack_top5,
 )
-from ..ops.sdtw_ref import subsequence_cost_seeded, subsequence_path
+from ..ops.sdtw_ref import path_to_map, subsequence_cost_seeded, subsequence_path
 from ..ops.sdtw_wavefront import sdtw_wavefront
-from ..output import paf_line
+from ..output import paf_line, sam_line
 from ..utils import log_info, log_verbose, log_warning
 
 # what brings each option that this slice does not serve (ROADMAP.md,
 # queue 1)
 _LATER = {
-    "dtw_std": "item 7c (--dtw-std)",
-    "invert": "item 7c (--invert)",
-    "full_ref": "item 7c (--full-ref)",
-    "secondary": "item 7b (--secondary)",
-    "from_end": "item 7b (--from-end)",
-    "sam": "item 7b (--sam)",
-    "pore": "item 7d (R10 and RNA004 chemistries)",
     "host_stages": "item 10 (--host-stages device)",
     "mesh": "item 11 (multi-GPU mesh)",
     "trace": "item 6 (--trace, a torch.profiler trace)",
     "hosts": "item 12 (multi-host: --shard, --hosts, --host-id, --coordinator)",
-    "eval": "item 8 (the eval subcommand)",
 }
 
 
@@ -122,7 +125,7 @@ class Options:
     full_ref: bool = False
     from_end: bool = False
     sam: bool = False
-    pore: str | None = None  # None = auto; only "r9" is served
+    pore: str | None = None  # None = auto
     model_file: str | None = None
     debug_break: int = -1
     profile: bool = False
@@ -137,11 +140,6 @@ class Options:
 
     def check_slice(self) -> None:
         """Raise NotImplementedError for an option outside this slice."""
-        for flag in ("dtw_std", "invert", "secondary", "full_ref", "from_end", "sam"):
-            if getattr(self, flag):
-                raise _later("--" + flag.replace("_", "-"), flag)
-        if self.pore not in (None, "r9"):
-            raise _later(f"--pore {self.pore}", "pore")
         if self.mesh:
             raise _later("--mesh", "mesh")
         if self.host_stages != "host":
@@ -226,14 +224,20 @@ class Core:
                     f"Experiment type mismatch: {curr} != {exp} in read "
                     f"group {g}. Defaulted to {exp}"
                 )
+        # the chemistry: --pore, else the header's sequencing_kit, else R9
+        self.pore_flag = jnn.PORE_R9
         if opt.pore is None:
             kit = self.sf.header_get("sequencing_kit", 0)
             if kit is None:
                 log_warning("sequencing_kit not found in SLOW5 header. Assuming R9.4.1")
             elif "114" in kit:
-                raise _later("R10 data (sequencing_kit *114*)", "pore")
+                self.pore_flag = jnn.PORE_R10
+                log_verbose("Detected R10 data. --pore r10 was set automatically.")
+                if opt.rna:
+                    raise SystemExit("R10 RNA data does not exist! But header indicates R10 RNA.")
             elif "rna004" in kit:
-                raise _later("RNA004 data (sequencing_kit *rna004*)", "pore")
+                self.pore_flag = jnn.PORE_RNA004
+                log_verbose("Detected RNA004 data. --pore rna004 was set automatically.")
             for g in range(1, self.sf.num_read_groups):
                 curr = self.sf.header_get("sequencing_kit", g)
                 if kit is not None and curr != kit:
@@ -241,6 +245,9 @@ class Core:
                         f"sequencing_kit type mismatch: {curr} != {kit} in "
                         f"read group {g}. Defaulted to {kit}"
                     )
+        else:
+            self.pore_flag = {"r9": jnn.PORE_R9, "r10": jnn.PORE_R10,
+                              "rna004": jnn.PORE_RNA004}[opt.pore]
 
         # samples-per-event estimate for the prefix-bounded eventization
         # fast path (_prepare_read_prefix); EMA-refined from real reads
@@ -254,15 +261,25 @@ class Core:
             if opt.model_file:
                 model = read_model_tsv(opt.model_file)
             elif opt.rna:
-                log_info("builtin RNA R9 nucleotide model loaded")
-                model = load_builtin_model(MODEL_ID_RNA_R9)
+                if self.pore_flag == jnn.PORE_RNA004:
+                    log_info("builtin RNA004 nucleotide model loaded")
+                    model = load_builtin_model(MODEL_ID_RNA_RNA004)
+                else:
+                    log_info("builtin RNA R9 nucleotide model loaded")
+                    model = load_builtin_model(MODEL_ID_RNA_R9)
+            elif self.pore_flag == jnn.PORE_R10:
+                log_info("builtin DNA R10 nucleotide model loaded")
+                model = load_builtin_model(MODEL_ID_DNA_R10)
             else:
                 log_info("builtin DNA R9 nucleotide model loaded")
                 model = load_builtin_model(MODEL_ID_DNA_R9)
             # --- synthesized reference (RNA: forward 3'-end tracks of
-            # min(1.5 q, L+1-k) events, their start offsets recorded)
+            # min(1.5 q, L+1-k) events, their start offsets recorded;
+            # --full-ref whole contigs, --from-end 5' ends, --invert the
+            # 3' end's events reversed)
             self.ref: RefSynth = gen_ref(
-                fasta_path, model, rna=opt.rna, query_size=opt.query_size
+                fasta_path, model, rna=opt.rna, full_ref=opt.full_ref,
+                from_end=opt.from_end, invert=opt.invert, query_size=opt.query_size,
             )
             # --- device track layout: contig-major, '+' then '-' per
             # contig, '+' only for RNA (candidate insertion order decides
@@ -312,6 +329,13 @@ class Core:
         self._wf_chunk_cache: dict[tuple[int, int], tuple] = {}
         # the clip fold's window numbering per qlen (clip_window_bases)
         self._clip_bases: dict[int, tuple[np.ndarray, int]] = {}
+        # --dtw-std: each track's corner diagonal, a track's last column
+        # (its first, when empty) + W - 1 (std_corner_diags)
+        self.std_corner_diags = np.array(
+            [int(o) + max(int(n), 1) - 1 + W - 1
+             for o, n in zip(self.track_offsets[:-1], self.track_sizes)],
+            dtype=np.int64,
+        )
         # how many times each device route ran: "oneshot" (sub-)batches,
         # "clip_pass" of them whose clipped rows the one-shot route's clip
         # pass served, "chunked" carry chains, "clip_fold" batches whose
@@ -357,6 +381,15 @@ class Core:
             )
         return self._wf_cache[Q]
 
+    def _chunked(self, Q: int, force_oneshot: bool = False) -> bool:
+        """Whether a Q-wide batch takes the chunked route (that of the
+        JAX package): ref_chunk > 0 always, 0 once R + Q passes
+        CHUNK_AUTO_COLS, -1 never; force_oneshot never."""
+        rc = self.opt.ref_chunk
+        return not force_oneshot and (
+            rc > 0 or (rc == 0 and self.ref_cat.shape[0] + Q > CHUNK_AUTO_COLS)
+        )
+
     def _count_route(self, route: str, n: int = 1) -> None:
         with self._routes_lock:
             self.routes[route] += n
@@ -382,14 +415,30 @@ class Core:
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in self.spans[route]) / 1e3
 
+    def _submit_parts(self, submit, qb: np.ndarray, qlens: np.ndarray, force_oneshot: bool):
+        """A batch of more than DEVICE_CHUNK rows as one handle of
+        DEVICE_CHUNK-row submissions of `submit`; None when it fits one."""
+        C = self.DEVICE_CHUNK
+        if qb.shape[0] <= C:
+            return None
+        return dict(parts=[
+            submit(qb[o : o + C], qlens[o : o + C], force_oneshot)
+            for o in range(0, qb.shape[0], C)
+        ])
+
+    @staticmethod
+    def _collect_parts(collect, handle: dict):
+        """The results of a _submit_parts handle's parts, each array of
+        them joined by rows."""
+        outs = [collect(h) for h in handle["parts"]]
+        if isinstance(outs[0], tuple):
+            return tuple(np.concatenate(a) for a in zip(*outs))
+        return np.concatenate(outs)
+
     def sdtw_candidates_collect(self, handle: dict) -> tuple[np.ndarray, np.ndarray]:
         """Wait for a submitted batch's results and unpack them."""
         if "parts" in handle:
-            outs = [self.sdtw_candidates_collect(h) for h in handle["parts"]]
-            return (
-                np.concatenate([o[0] for o in outs]),
-                np.concatenate([o[1] for o in outs]),
-            )
+            return self._collect_parts(self.sdtw_candidates_collect, handle)
         if handle["packed"] is None:
             # clip-only submission (every live row clipped): no main pass
             # ran; the clip entries below fill every real row
@@ -439,22 +488,15 @@ class Core:
         the chunked route, 0 takes it once R + Q passes CHUNK_AUTO_COLS,
         -1 never does. force_oneshot takes the one-shot route whatever
         the reference's length (to compare the two routes)."""
+        parts = self._submit_parts(self.sdtw_candidates_submit, qb, qlens, force_oneshot)
+        if parts is not None:
+            return parts
         B, Q = qb.shape
-        if B > self.DEVICE_CHUNK:
-            C = self.DEVICE_CHUNK
-            parts = [
-                self.sdtw_candidates_submit(
-                    qb[o : o + C], qlens[o : o + C], force_oneshot=force_oneshot
-                )
-                for o in range(0, B, C)
-            ]
-            return dict(parts=parts)
         R = self.ref_cat.shape[0]
         W = self.opt.query_size
         clip_rows = np.where((qlens > 0) & (qlens != W))[0]
-        if self.opt.ref_chunk >= 0 and not force_oneshot:
-            if self.opt.ref_chunk > 0 or R + Q > CHUNK_AUTO_COLS:
-                return self._chunked_candidates_submit(qb, qlens, clip_rows)
+        if self._chunked(Q, force_oneshot):
+            return self._chunked_candidates_submit(qb, qlens, clip_rows)
         self._count_route("oneshot")
         ypad, rspad, _ = self._wavefront_inputs(Q)
         if clip_rows.size:
@@ -541,6 +583,53 @@ class Core:
                 handle["clip_packed"] = _start_host_copy(clip.top5())
         return handle
 
+    def sdtw_std_corners_submit(
+        self, qb: np.ndarray, qlens: np.ndarray, force_oneshot: bool = False
+    ) -> dict:
+        """--dtw-std: launch the boundary-anchored sweep (the kernel's
+        std instance) for one query batch and gather, on the device, each
+        track's corner, the cell at its last column: std DTW's one
+        candidate per track (ref sigfish.c:914-925). Only the (B,
+        ntracks) corners come back (sdtw_std_corners_collect); no window
+        top-5 and no clip pass run. Clipped reads ride the query shift of
+        the subsequence path, their start lanes on every launch.
+
+        The route is sdtw_candidates_submit's: past CHUNK_AUTO_COLS (or
+        with ref_chunk > 0) the carry chain streams the reference and
+        CornerFold gathers the corners segment by segment, bit for bit
+        the one-shot corners: no host DP computes a corner, at any
+        reference size."""
+        parts = self._submit_parts(self.sdtw_std_corners_submit, qb, qlens, force_oneshot)
+        if parts is not None:
+            return parts
+        B, Q = qb.shape
+        W = self.opt.query_size
+        dev = self.device
+        qb_k, fs = shift_queries_for_clip(qb, qlens, W - 1)
+        q = torch.from_numpy(qb_k).to(dev)
+        sl = torch.from_numpy(fs).to(dev)
+        if self._chunked(Q, force_oneshot):
+            self._count_route("chunked")
+            yps, rps, vs = self._chunk_inputs(Q)[:3]
+            fold = CornerFold(B, self.std_corner_diags, vs.shape[1], dev)
+            with self._span("chunked"):
+                carry_chain(q, yps, rps, W - 1, [fold], sl, std=True)
+                corners = _start_host_copy(fold.corners)
+            return dict(corners=corners)
+        self._count_route("oneshot")
+        ypad, rspad, _ = self._wavefront_inputs(Q)
+        cols = torch.from_numpy(self.std_corner_diags).to(dev)
+        with self._oneshot_lock, self._span("oneshot"):
+            scores = sdtw_wavefront(q, ypad, rspad, lane=W - 1, start_lanes=sl, std=True)
+            corners = _start_host_copy(scores.index_select(1, cols))
+        return dict(corners=corners)
+
+    def sdtw_std_corners_collect(self, handle: dict) -> np.ndarray:
+        """Wait for a submitted batch's (B, ntracks) std corners."""
+        if "parts" in handle:
+            return self._collect_parts(self.sdtw_std_corners_collect, handle)
+        return _host_array(handle["corners"])
+
     def close(self) -> None:
         self.sf.close()
         if self._pool:
@@ -594,9 +683,10 @@ def _event_single(core: Core, w: ReadWork) -> ReadWork:
 
 
 def _normalise_single(core: Core, w: ReadWork, py: int | None = None) -> ReadWork:
-    """ref: normalise_single sigfish.c:424-505 (query window + z-score),
-    the window from the read's start: a fixed prefix (-p >= 0), or with
-    -p -1 the first event at or after the polyA tail's end.
+    """ref: normalise_single sigfish.c:424-505 (query window + z-score).
+    The window starts after a fixed prefix (-p >= 0), or with -p -1 at
+    the first event at or after the polyA tail's end; with --from-end it
+    ends the prefix's events before the read's last event.
 
     py: the polyA end's sample index when already known (the prefix
     path's, so the adaptor and polyA scans are not repeated); None =
@@ -605,33 +695,45 @@ def _normalise_single(core: Core, w: ReadWork, py: int | None = None) -> ReadWor
         return w
     opt = core.opt
     n = w.n_events
-    start_idx = opt.prefix_size
-    if opt.prefix_size < 0:
-        if py is None:
-            if w.pa is None:
-                w.pa = w.rec.to_pa()
-            py = jnn.detect_polya_end(w.rec.raw_signal, w.pa, pore=jnn.PORE_R9)
-        if py < 0:
-            start_idx = -1
-        else:
-            # first event with start >= py, linear first-match
-            # (ref sigfish.c:405-411)
-            ge = np.nonzero(w.event_start.astype(np.int64) >= py)[0]
-            start_idx = int(ge[0]) if ge.size else -1
+    if not opt.from_end:
+        start_idx = opt.prefix_size
+        if opt.prefix_size < 0:
+            if py is None:
+                if w.pa is None:
+                    w.pa = w.rec.to_pa()
+                py = jnn.detect_polya_end(w.rec.raw_signal, w.pa, pore=core.pore_flag)
+            if py < 0:
+                start_idx = -1
+            else:
+                # first event with start >= py, linear first-match
+                # (ref sigfish.c:405-411)
+                ge = np.nonzero(w.event_start.astype(np.int64) >= py)[0]
+                start_idx = int(ge[0]) if ge.size else -1
+            if start_idx < 0:
+                w.flag_prefix_fail = True
+                start_idx = 50  # fall back, ref sigfish.c:440-447
+        end_idx = start_idx + opt.query_size
+        if start_idx + 25 > n:  # min query size 25, ref sigfish.c:450-456
+            w.skip = True
+            w.flag_ignored = True
+            return w
+        if end_idx > n:
+            end_idx = n
+            w.flag_too_short = True
+    else:
+        start_idx = n - opt.prefix_size - opt.query_size
+        end_idx = n - opt.prefix_size
         if start_idx < 0:
-            w.flag_prefix_fail = True
-            start_idx = 50  # fall back, ref sigfish.c:440-447
-    end_idx = start_idx + opt.query_size
-    if start_idx + 25 > n:  # min query size 25, ref sigfish.c:450-456
-        w.skip = True
-        w.flag_ignored = True
-        return w
-    if end_idx > n:
-        end_idx = n
-        w.flag_too_short = True
+            start_idx = 0
+            w.flag_too_short = True
+        if end_idx < 0:
+            w.skip = True
+            w.flag_ignored = True
+            return w
     if end_idx <= start_idx:
-        # empty query window (-q 0): counted as ignored, as the JAX
-        # package does (PARITY.md Robustness)
+        # empty query window (--from-end with n_events == prefix, or
+        # -q 0): counted as ignored, as the JAX package does (PARITY.md
+        # Robustness)
         w.skip = True
         w.flag_ignored = True
         return w
@@ -661,9 +763,9 @@ def _finish_normalise(core: Core, w: ReadWork, start_idx: int, end_idx: int) -> 
         sl_norm = (sl - mean) / stdv
     w.event_mean[start_idx:end_idx] = sl_norm
     # RNA runs 3' to 5' through the pore: the query is reversed to meet
-    # the forward track (ref sigfish.c:860-867); --invert, which reverses
-    # the reference instead, is refused (item 7c)
-    w.query = sl_norm[::-1].copy() if core.opt.rna else sl_norm.copy()
+    # the forward track (ref sigfish.c:860-867), unless --invert reversed
+    # the reference's events instead
+    w.query = sl_norm[::-1].copy() if core.opt.rna and not core.opt.invert else sl_norm.copy()
     assert w.query.size == end_idx - start_idx
     return w
 
@@ -701,7 +803,7 @@ def _prepare_read_prefix(core: Core, w: ReadWork) -> ReadWork:
         py = -1
         start_known = opt.prefix_size
     else:
-        py = jnn.detect_polya_end(w.rec.raw_signal, pa, pore=jnn.PORE_R9)
+        py = jnn.detect_polya_end(w.rec.raw_signal, pa, pore=core.pore_flag)
         if py < 0:
             w.flag_prefix_fail = True
             start_known = 50  # ref sigfish.c:440-447 fallback
@@ -763,43 +865,55 @@ def _prepare_read_prefix(core: Core, w: ReadWork) -> ReadWork:
 def _prepare_read(core: Core, blob: bytes) -> ReadWork:
     """Fused parse + event + normalise for one read (default mode).
 
-    ref: work_per_single_read sigfish.c:995-1001.
+    ref: work_per_single_read sigfish.c:995-1001. --from-end takes the
+    exact full-signal path: its window is counted from the last event,
+    which a signal prefix cannot know.
     """
     w = _parse_single(core, blob)
     if w.skip:
         return w
+    if core.opt.from_end:
+        return _normalise_single(core, _event_single(core, w))
     return _prepare_read_prefix(core, w)
 
 
-def _backtrack_best(core: Core, w: ReadWork, track_idx: int, pos_local: int) -> int:
-    """Recover pos_st for the winner.
+def _backtrack_best(
+    core: Core, w: ReadWork, track_idx: int, pos_local: int
+) -> tuple[int, np.ndarray | None]:
+    """Recover pos_st for the winner, and with --sam the reference-to-
+    query-event map of its path.
 
     Recomputes a fresh DP column window ending at the winning column and
     backtracks greedily -- exact because subsequence DTW has a free start
     on the reference axis. If the path touches the window's left edge
-    the window is widened and recomputed. Replaces the reference's
-    O(qlen x rlen) matrix retention (src/sigfish.c:873, src/cdtw.c:120).
+    the window is widened and recomputed. Standard DTW (--dtw-std) is
+    boundary-anchored, so its window is always the full track prefix.
+    Replaces the reference's O(qlen x rlen) matrix retention
+    (src/sigfish.c:873, src/cdtw.c:120).
     """
     from .. import native
 
+    opt = core.opt
     track_start = int(core.track_offsets[track_idx])
     pos_global = track_start + pos_local
     qlen = w.query.size
-    span = min(max(2 * qlen, 64), pos_local + 1)
+    span = pos_local + 1 if opt.dtw_std else min(max(2 * qlen, 64), pos_local + 1)
     while True:
         j_lo = pos_global + 1 - span
         ref_cols = core.ref_cat[j_lo : pos_global + 1]
         if native.available():
-            px, py = native.subsequence_backtrack(w.query, ref_cols, span - 1, std=False)
+            px, py = native.subsequence_backtrack(w.query, ref_cols, span - 1, std=opt.dtw_std)
         else:
-            cost = subsequence_cost_seeded(w.query, ref_cols, None, std=False)
+            cost = subsequence_cost_seeded(w.query, ref_cols, None, std=opt.dtw_std)
             px, py = subsequence_path(cost, span - 1)
         if py[0] == 0 and j_lo > track_start:
             # path touched the recompute window's left edge: widen
             span = min(span * 2, pos_local + 1)
             continue
         break
-    return int(py[0]) + (j_lo - track_start)
+    pos_st_local = int(py[0]) + (j_lo - track_start)
+    r2q = path_to_map(px, py, pos_local - pos_st_local + 1) if opt.sam else None
+    return pos_st_local, r2q
 
 
 @dataclass
@@ -894,7 +1008,10 @@ def submit_batch(core: Core, blobs: list[bytes]) -> PendingBatch:
         # uniform candidate path (their results are never read)
         queries.append(np.zeros(max(opt.query_size, 1), dtype=np.float32))
     qb, qlens, _ = make_query_batch(queries, pad_q=core.pad_q)
-    pending.handle = core.sdtw_candidates_submit(qb, qlens)
+    if opt.dtw_std:
+        pending.handle = core.sdtw_std_corners_submit(qb, qlens)
+    else:
+        pending.handle = core.sdtw_candidates_submit(qb, qlens)
     return pending
 
 
@@ -909,34 +1026,49 @@ def finish_batch(core: Core, pending: PendingBatch) -> tuple[list[str | None], B
             core.dtw_time += time.time() - pending.dtw_t0
         return [None] * len(works), stats
     offs = core.track_offsets
-    top_s, top_p = core.sdtw_candidates_collect(pending.handle)
+    if opt.dtw_std:
+        corners = core.sdtw_std_corners_collect(pending.handle)
+        # std DTW's candidates: one per non-empty track, its corner, in
+        # track order (ref sigfish.c:914-925)
+        cand_track = [t for t, size in enumerate(core.track_sizes) if size > 0]
+        cand_pos = np.asarray([core.track_sizes[t] - 1 for t in cand_track])
+    else:
+        top_s, top_p = core.sdtw_candidates_collect(pending.handle)
 
     # pass 1: winner selection per read (cheap host work)
     winners = []  # (w, t, pos_end_local, d1, d2, rid, strand)
     for slot, i in enumerate(live):
         w = works[i]
-        s0 = float(top_s[slot, 0])
-        if top_p[slot, 0] < 0 or s0 >= 1e37:
-            w.out = None
-            continue
-        d1 = s0
-        d2 = float(top_s[slot, 1])
-        if d2 >= 1e37:
-            d2 = float("inf")
-        pos_global = int(top_p[slot, 0])
-        t = int(np.searchsorted(offs, pos_global, side="right")) - 1
+        if opt.dtw_std:
+            best, d1, d2 = rank_candidates(corners[slot, cand_track], cand_pos)
+            if best < 0:
+                w.out = None
+                continue
+            t = cand_track[best]
+            pos_end_local = int(cand_pos[best])
+        else:
+            s0 = float(top_s[slot, 0])
+            if top_p[slot, 0] < 0 or s0 >= 1e37:
+                w.out = None
+                continue
+            d1 = s0
+            d2 = float(top_s[slot, 1])
+            if d2 >= 1e37:
+                d2 = float("inf")
+            pos_global = int(top_p[slot, 0])
+            t = int(np.searchsorted(offs, pos_global, side="right")) - 1
+            pos_end_local = pos_global - int(offs[t])
         rid, strand = core.track_meta[t]
-        pos_end_local = pos_global - int(offs[t])
         winners.append((w, t, pos_end_local, d1, d2, rid, strand))
 
     # pass 2: winner backtracks (native calls release the GIL -> the
     # thread pool parallelizes them on multi-core hosts)
-    starts = _pool_map(
+    paths = _pool_map(
         core._pool, lambda a: _backtrack_best(core, a[0], a[1], a[2]), winners
     )
 
     # pass 3: coordinates + formatting
-    for (w, t, pos_end_local, d1, d2, rid, strand), pos_st_local in zip(winners, starts):
+    for (w, t, pos_end_local, d1, d2, rid, strand), (pos_st_local, r2q) in zip(winners, paths):
         # strand flip, ref sigfish.c:971-977
         rlen = core.ref.ref_lengths[rid]
         if strand == "+":
@@ -954,21 +1086,39 @@ def finish_batch(core: Core, pending: PendingBatch) -> tuple[list[str | None], B
         start_raw = int(w.event_start[start_ev])
         end_raw = int(w.event_start[end_ev]) + int(np.float32(w.event_length[end_ev]))
         query_size = end_ev - start_ev
-        w.out = paf_line(
-            w.rec.read_id,
-            w.rec.len_raw_signal,
-            start_raw,
-            end_raw,
-            strand,
-            core.ref.ref_names[rid],
-            core.ref.ref_seq_lengths[rid],
-            pos_st,
-            pos_end,
-            d1,
-            d2,
-            mapq,
-            query_size,
-        )
+        if opt.sam:
+            w.out = sam_line(
+                w.rec.read_id,
+                strand,
+                core.ref.ref_names[rid],
+                pos_st,
+                pos_end,
+                mapq,
+                query_size,
+                start_raw,
+                end_raw,
+                w.qstart,
+                r2q,
+                w.event_start,
+                w.event_length,
+                opt.rna,
+            )
+        else:
+            w.out = paf_line(
+                w.rec.read_id,
+                w.rec.len_raw_signal,
+                start_raw,
+                end_raw,
+                strand,
+                core.ref.ref_names[rid],
+                core.ref.ref_seq_lengths[rid],
+                pos_st,
+                pos_end,
+                d1,
+                d2,
+                mapq,
+                query_size,
+            )
 
     if opt.profile:
         core.dtw_time += time.time() - pending.dtw_t0

@@ -1,7 +1,8 @@
 """The port's CLI against the reference's `dtw` option table: every flag
-of sigfish_tpu/cli.py parses, and the flags of later slices and the
-`eval` command end with exit code 1 and an error naming the ROADMAP.md
-item that brings them (never argparse's usage line and exit code 2).
+of sigfish_tpu/cli.py parses, and the flags of later slices end with
+exit code 1 and an error naming the ROADMAP.md item that brings them
+(never argparse's usage line and exit code 2). The `eval` command runs
+(tests/test_torch_eval.py holds its bytes to the JAX CLI's).
 """
 
 from __future__ import annotations
@@ -29,10 +30,17 @@ def test_later_dtw_flags_name_their_item(argv, names, capsys, tmp_path):
     assert names in err and "usage:" not in err
 
 
-def test_eval_names_its_item(capsys):
-    assert cli.main(["eval", "a.paf", "b.paf"]) == 1
+def test_eval_names_its_item(capsys, tmp_path):
+    """`eval` names no ROADMAP item since it is served: it runs, and a
+    missing file is the reference's one-line error, exit code 1."""
+    paf = tmp_path / "a.paf"
+    paf.write_text("r1\t100\t0\t90\t+\tc1\t1000\t10\t300\t90\t90\t60\ttp:A:P\n")
+    assert cli.main(["eval", str(paf), str(paf)]) == 0
+    out = capsys.readouterr()
+    assert "correct\t1 (100.00%)" in out.out and "item" not in out.err
+    assert cli.main(["eval", str(paf), str(tmp_path / "missing.paf")]) == 1
     err = capsys.readouterr().err
-    assert "item 8" in err and "Unknown command" not in err
+    assert "No such file or directory" in err and "Unknown command" not in err
 
 
 def test_parser_takes_every_reference_dtw_flag():

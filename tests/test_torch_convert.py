@@ -1,7 +1,8 @@
 """State carried across from the JAX package (sigfish_tpu_torch/convert.py),
 the port's copies of the host modules against their originals, and the
 port's refusals: no CUDA device when one is asked for, and options of
-later slices."""
+later slices (those that earlier slices refused and this one serves now
+map as the JAX package does)."""
 
 from __future__ import annotations
 
@@ -154,6 +155,25 @@ def test_cuda_core_without_gpu_raises(pair):
     dict(mesh="2x1"), dict(host_stages="device"), dict(rna=True, full_ref=True),
 ])
 def test_later_options_raise(pair, kw):
+    """--mesh and --host-stages device raise naming their ROADMAP item.
+    The other options here were refused by earlier slices and are served
+    now: each maps the reads to the JAX package's bytes (native engine)."""
+    import io
+
+    from sigfish_tpu.runtime.pipeline import run_dtw as j_run_dtw
+
     fa, bl = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        tp.Core(fa, bl, tp.Options(device="cpu", **kw))
+    if "mesh" in kw or "host_stages" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+            tp.Core(fa, bl, tp.Options(device="cpu", **kw))
+        return
+    core = tp.Core(fa, bl, tp.Options(device="cpu", num_thread=1, **kw))
+    got = io.StringIO()
+    tp.run_dtw(core, got)
+    core.close()
+    j = JCore(fa, bl, JOptions(num_thread=1, engine="native", **kw))
+    want = io.StringIO()
+    j_run_dtw(j, want)
+    j.close()
+    assert got.getvalue() == want.getvalue()
+    assert core.total_reads == 6 and len(got.getvalue().splitlines()) >= 4

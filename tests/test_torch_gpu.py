@@ -8,6 +8,10 @@ these without the repository's conftest:
 
 from __future__ import annotations
 
+import importlib.util
+import io
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -172,6 +176,45 @@ def test_clip_fold_on_the_card_vs_cpu(cuda_device, seed):
     assert wf.sdtw_wavefront_carry.launches_start_lanes == before + vs.shape[0] >= before + 3
     for g, w in zip(got, run("cpu")):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ref_chunk", [-1, 300])
+def test_std_corners_on_the_card_vs_cpu(cuda_device, tmp_path, ref_chunk):
+    """--dtw-std's corners on the card, one-shot (ref_chunk=-1: the std
+    instance) and chunked (a forced ref_chunk: the std carry instance
+    and CornerFold), equal the CPU's bit for bit on a batch with clipped
+    reads, and the whole run's PAF is the CPU's."""
+    from sigfish_tpu_torch.runtime import pipeline as tp
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    fa, bl, _ = smoke.make_rna_workload(str(tmp_path), 6, 30, 9, tx_len=(300, 600),
+                                        walks=(150, 70))
+    opt = dict(rna=True, query_size=100, prefix_size=-1, dtw_std=True, ref_chunk=ref_chunk,
+               batch_size=16, num_thread=1)
+    counter = wf.sdtw_wavefront_carry if ref_chunk > 0 else wf.sdtw_wavefront
+    corners, pafs = [], []
+    for dev in ("cuda", "cpu"):
+        core = tp.Core(fa, bl, tp.Options(device=dev, **opt))
+        works = [tp._prepare_read(core, b) for b in core.sf.read_batch(30, 1 << 40)]
+        qb, qlens, _ = tp.make_query_batch([w.query for w in works if not w.skip],
+                                           pad_q=core.pad_q)
+        assert (qlens < 100).sum() >= 2
+        before = counter.launches_std
+        corners.append(core.sdtw_std_corners_collect(core.sdtw_std_corners_submit(qb, qlens)))
+        if dev == "cuda":
+            assert counter.launches_std > before
+        core.close()
+        core = tp.Core(fa, bl, tp.Options(device=dev, **opt))
+        out = io.StringIO()
+        tp.run_dtw(core, out)
+        core.close()
+        pafs.append(out.getvalue())
+    assert np.array_equal(corners[0].view(np.int32), corners[1].view(np.int32))
+    assert pafs[0] == pafs[1] != ""
 
 
 @pytest.mark.gpu

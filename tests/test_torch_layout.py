@@ -1,7 +1,8 @@
 """The port's layout helpers (sigfish_tpu_torch/ops/layout.py) against
-their JAX-package counterparts, and the port's independence from JAX:
-it imports with jax blocked, loads no module of sigfish_tpu, and no file
-of it imports either."""
+their JAX-package counterparts, its copies of the JAX-free host modules
+against their originals, and the port's independence from JAX: it
+imports with jax blocked, loads no module of sigfish_tpu, and no file of
+it imports either."""
 
 from __future__ import annotations
 
@@ -98,6 +99,7 @@ _MODULES = [
     "sigfish_tpu_torch",
     "sigfish_tpu_torch.cli",
     "sigfish_tpu_torch.convert",
+    "sigfish_tpu_torch.eval",
     "sigfish_tpu_torch.io.blow5",
     "sigfish_tpu_torch.io.blow5_idx",
     "sigfish_tpu_torch.io.fasta",
@@ -123,6 +125,27 @@ _MODULES = [
     "sigfish_tpu_torch.scripts.timing",
     "sigfish_tpu_torch.utils",
 ]
+
+
+# the JAX package's host modules the port keeps as its own copies, equal
+# apart from their import lines (native/ differs on purpose: it builds
+# into build/ and without libdeflate/zstd where their headers are absent)
+_COPIES = [
+    "eval.py", "output.py", "io/blow5.py", "io/blow5_idx.py", "io/fasta.py",
+    "models/genref.py", "models/pore_model.py", "ops/candidates.py", "ops/events.py",
+    "ops/jnn.py", "ops/sdtw_ref.py", "utils/__init__.py", "utils/log.py", "utils/timers.py",
+]
+
+
+@pytest.mark.parametrize("rel", _COPIES)
+def test_host_copy_equals_its_original(rel):
+    imports = re.compile(r"^\s*(from\s+\S+\s+import\b|import\s)")
+
+    def body(pkg):
+        with open(os.path.join(REPO, pkg, rel)) as fh:
+            return [ln for ln in fh.read().splitlines() if not imports.match(ln)]
+
+    assert body("sigfish_tpu_torch") == body("sigfish_tpu")
 
 
 def test_modules_listed_cover_the_package():

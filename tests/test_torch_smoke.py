@@ -60,3 +60,29 @@ def test_bench_reference_is_chip_smokes(smoke_core):
     assert D == want[2] == 60_672
     np.testing.assert_array_equal(ypad, want[0])
     np.testing.assert_array_equal(rspad, want[1])
+
+
+@pytest.mark.parametrize("chem", ["r10", "rna004"])
+def test_phase8_chemistries_are_detected(smoke, tmp_path, chem):
+    """Phase 8's R10 and RNA004 workloads: the header's kit selects the
+    chemistry and its 9-mer model, the R10 reads are clipped one in ten,
+    and RNA004's polyA scan finds the polyA of every read drawn with an
+    adaptor and a polyA (its wider adaptor threshold may also take a
+    stretch of a read drawn without them, i % 20 == 4, for one)."""
+    from sigfish_tpu_torch.ops import jnn
+
+    if chem == "r10":
+        fa, bl, _ = smoke.make_workload(str(tmp_path), smoke.N_BASES, 20, smoke.SEED + 8, r10=True)
+        kw, flag = dict(query_size=smoke.W, prefix_size=smoke.PREFIX), jnn.PORE_R10
+    else:
+        fa, bl, _ = smoke.make_rna_workload(str(tmp_path), 4, 24, smoke.SEED + 7, rna004=True)
+        kw, flag = dict(smoke.RNA_OPT), jnn.PORE_RNA004
+    core = pl.Core(fa, bl, pl.Options(num_thread=1, device="cpu", **kw))
+    assert core.pore_flag == flag and core.state.model.kmer_size == 9
+    works = [pl._prepare_read(core, b) for b in core.sf.read_batch(64, 1 << 40)]
+    core.close()
+    if chem == "r10":
+        assert [w.flag_too_short for w in works] == [i % 10 == 9 for i in range(20)]
+    else:
+        assert not any(w.flag_prefix_fail for i, w in enumerate(works) if i % 20 != 4)
+        assert sum(w.flag_too_short for w in works) >= 2
