@@ -5,16 +5,17 @@
 
 Run from the root of a checkout, on a machine with one Hopper GPU
 (compute capability 9.0), nvcc and g++. It builds the port's kernels from
-the checkout's sources, then runs eight phases, and fails (exit code 1,
+the checkout's sources, then runs nine phases, and fails (exit code 1,
 no result line) if any of them fails:
 
   1. device   CUDA present with capability (9, 0); prints the card's
               name and power limit, torch's CUDA and nvcc's versions,
               and the f32 issue rate every bound is computed at (SMs x
               128 instructions per clock x the maximum SM clock)
-  2. build    the wavefront and ALU-probe kernels (nvcc, sm_90a, one
-              process each, started together; ptxas' registers and
-              spills of every Q=512 instance, a summary of the rest) and
+  2. build    the wavefront, ALU-probe, events and polyA kernels (nvcc,
+              sm_90a, one process each, started together; ptxas'
+              registers and spills of every Q=512 instance, a summary of
+              the rest) and
               the native host library (g++); prints the seconds each took
               and native_host: true|false (false = the exact numpy host
               fallbacks ran)
@@ -150,6 +151,25 @@ no result line) if any of them fails:
               against the plain version, and a three-segment carry
               chain (every warps instance and a mixed one) against it and
               the one-shot launch.
+  9. host     --host-stages device: the events kernel (csrc/events.cu)
+     stages   bit for bit against its plain version on a 64-read fuzz batch
+              (S=8,192: stepwise, noise, near-flat, short and polyA-shaped
+              reads and one whose events overflow the cap) with DNA and
+              RNA windows, and the polyA kernel (csrc/polya.cu) with R9
+              and RNA004 parameters; every read of phases 4 and 7 through
+              the pipeline's buckets, its event table bit for bit against
+              the host eventizer (reads whose polyA end differs from the
+              host scan's are printed); each kernel's ms a launch at the
+              largest bucket of phase 4 (events) and phase 7 (both), held
+              bit for bit to one plain run, beside its bound and chain
+              floor; run_dtw with --host-stages device on the card over
+              phase 4's, phase 7's, phase 8's RNA004 and phase 6's reads,
+              each whole PAF byte-identical to the host mode's, with the
+              launch counts (> 0), the reads sent to the host path, reads/s
+              beside host mode's, and the main thread's wait for the side
+              stream beside its device time (phase 6: the overlap with
+              the chunked sDTW); and phase 7's --profile-cpu stage split
+              in device mode.
 
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -200,6 +220,23 @@ SUBSET8 = 64            # R10 reads checked byte for byte against the CPU path
 N8_SMALL_TX = 20        # the small RNA reference of the card-vs-CPU checks
 N8_SMALL_READS = 64
 SMALL_TX_LEN = (600, 2_000)
+
+# phase 9: the host stages' kernels, a thread a read. Operations a sample
+# as counted in their loops, each arithmetic instruction one operation (a
+# division or square root too, so the bounds err low): csrc/events.cu's
+# prefix pass 3 f32 and 4 f64, each of its two t-stats 6 f32 and 22 f64,
+# each of its two detectors ~10 f32 or integer; csrc/polya.cu ~10 in each
+# of its three passes over t, 4 in the adaptor's sum, ~15 in the jnn_core
+# pass. f64 instructions issue at 64 per SM and clock, half the f32 rate.
+EVENTS_F32_OPS = 3 + 2 * 6 + 2 * 10
+EVENTS_F64_OPS = 4 + 2 * 22
+POLYA_OPS = 3 * 10 + 4 + 15
+F64_PER_F32_ISSUE = 0.5
+# the dependent chains' latencies the floors assume, in SM cycles: an f64
+# add (the prefix sums' chain), a dependent f32 add or compare-and-select
+# (the running mean, the state machines' carried state)
+LAT_F64_ADD = 8
+LAT_F32 = 4
 
 # ALU probe iterations per launch (the bench's default)
 PROBE_ITERS = 16384
@@ -299,10 +336,12 @@ RNA004_HEADER = [{"experiment_type": "rna", "sequencing_kit": "sqk-rna004"}]
 
 
 def make_rna_workload(d: str, n_tx: int, n_reads: int, seed: int, tx_len=TX_LEN,
-                      walks=(560, 240), rna004: bool = False, header=None):
+                      walks=(560, 240), rna004: bool = False, header=None,
+                      adaptor=(9_000, 14_000)):
     """A FASTA of n_tx seeded random transcripts and a BLOW5 (header
     experiment_type rna) of direct-RNA reads. Each read is an adaptor
-    stretch (20 pA, 9,000-14,000 samples), a polyA stretch (62 pA,
+    stretch (20 pA, by default 9,000-14,000 samples: `adaptor` is the
+    half-open range), a polyA stretch (62 pA,
     1,000-3,000 samples: inside sigfish's band of the adaptor mean + 30
     +-20 pA, above the adaptor finder's threshold, below every R9 and
     RNA004 RNA level), then a transcript's 3' end walked towards 5'
@@ -349,7 +388,7 @@ def make_rna_workload(d: str, n_tx: int, n_reads: int, seed: int, tx_len=TX_LEN,
             walk = min(n_kmer, walks[1] if i % 10 == 9 else walks[0])
             levels = model.level_mean[kmer_ranks(_seq_bytes(seq[n_kmer - walk :]), k,
                                                  warn_non_acgt=False)][::-1]
-            n_ad, n_pa = (0, 0) if i % 20 == 4 else (int(rng.integers(9_000, 14_000)),
+            n_ad, n_pa = (0, 0) if i % 20 == 4 else (int(rng.integers(*adaptor)),
                                                      int(rng.integers(1_000, 3_000)))
             tx = np.repeat(levels, rng.integers(20, 45, size=levels.size)).astype(np.float64)
             pa = np.concatenate([rng.normal(20.0, 2.0, n_ad), rng.normal(62.0, 2.0, n_pa),
@@ -362,6 +401,86 @@ def make_rna_workload(d: str, n_tx: int, n_reads: int, seed: int, tx_len=TX_LEN,
             ))
             truth[rid] = (name, "+", n_kmer - walk, len(seq))
     return fa, bl, truth
+
+
+def fuzz_reads(rng, n: int, rna: bool) -> list:
+    """The eventizer's fuzz mix (that of sigfish_tpu's device-eventizer
+    tests): i16 signals, half stepwise model-like dwell signals, a quarter
+    pure noise, some near-flat (their t-stat windows have subnormal
+    variance quotients) and some very short."""
+    import numpy as np
+
+    sigs = []
+    for _ in range(n):
+        kind = rng.random()
+        if kind < 0.5:
+            n_ev = int(rng.integers(20, 220))
+            lv = rng.normal(90.0, 12.0, n_ev)
+            dw = rng.integers(6, 28 if rna else 13, n_ev)
+            x = np.repeat(lv, dw) + rng.normal(0, 1.5, int(dw.sum()))
+            sig = np.clip(np.rint(x * 8192.0 / 1400.0 - 5.0), -30000, 30000)
+        elif kind < 0.75:
+            sig = rng.integers(300, 900, int(rng.integers(500, 6000)))
+        elif kind < 0.9:
+            n_s = int(rng.integers(100, 2000))
+            sig = np.full(n_s, 512) + rng.integers(-2, 3, n_s)
+        else:
+            sig = rng.integers(-30000, 30000, int(rng.integers(2, 200)))
+        sigs.append(sig.astype(np.int16))
+    return sigs
+
+
+def polya_reads(rng, n: int, adaptor=(3_000, 4_000), polya=(800, 1_500),
+                tail=(2_000, 3_000)) -> list:
+    """Short direct-RNA-shaped i16 signals (digitisation 8192, offset 10,
+    range 1400): an adaptor at 20 pA, a polyA at 62 pA, then noisy 80-130
+    pA steps of 20-45 samples; `adaptor`, `polya` and `tail` are the
+    half-open ranges of each stretch's samples."""
+    import numpy as np
+
+    sigs = []
+    for _ in range(n):
+        n_t = int(rng.integers(*tail))
+        steps = np.repeat(rng.uniform(80.0, 130.0, n_t // 20 + 1), rng.integers(20, 45, n_t // 20 + 1))
+        pa = np.concatenate([rng.normal(20.0, 2.0, int(rng.integers(*adaptor))),
+                             rng.normal(62.0, 2.0, int(rng.integers(*polya))),
+                             steps[:n_t] + rng.normal(0.0, 1.5, min(n_t, steps.size))])
+        sigs.append(np.clip(np.rint(pa * 8192.0 / 1400.0 - 10.0), -32000, 32000).astype(np.int16))
+    return sigs
+
+
+def host_stage_batch(seed: int, rna: bool, S: int = 8_192, n: int = 64):
+    """The batch phase 9 holds the eventizer and polyA kernels to their
+    plain versions on: n reads of at most S samples, in (B, S) i16 rows
+    with nsamples (B,) i32 and digitisation, offset, range (B,) f64. Most
+    are the fuzz mix and short polyA-shaped reads; the rest are a read of
+    S - 100 samples stepping to a new random level every 3 samples (with
+    DNA's windows its events overflow the cap S // 4; uniform noise gives
+    only about one event in 5.4 samples), a noiseless stepped read (a
+    window astride a step has two constant halves, so its variance
+    quotient combined_var / w is subnormal and its t-stat huge but
+    finite), a pure-noise read (the adaptor scan fails), a flat read shorter than the polyA scan's rolling window,
+    a polyA-shaped read with a 300-sample polyA, and an empty read."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    steps3 = np.repeat(rng.integers(-20000, 20000, S // 3), 3)[: S - 100]
+    special = [(steps3 + rng.integers(-3, 4, steps3.size)).astype(np.int16),
+               np.repeat(rng.integers(300, 900, 60), 20).astype(np.int16),
+               rng.integers(300, 900, 6_000).astype(np.int16),
+               np.full(1_500, 300, np.int16),
+               polya_reads(rng, 1, polya=(300, 301))[0],
+               np.zeros(0, np.int16)]
+    n_pa = (n - len(special)) // 3
+    sigs = fuzz_reads(rng, n - len(special) - n_pa, rna) + polya_reads(rng, n_pa) + special
+    sig = np.zeros((n, S), np.int16)
+    ns = np.zeros(n, np.int32)
+    for b, x in enumerate(sigs):
+        x = x[:S]
+        sig[b, : x.size] = x
+        ns[b] = x.size
+    return (sig, ns, np.full(n, 8192.0), np.where(np.arange(n) % 2, 10.0, 5.0),
+            np.full(n, 1400.0))
 
 
 def subset_blow5(bl: str, out: str, keep, header=None) -> None:
@@ -1488,7 +1607,8 @@ def main() -> None:
         fa04, bl04, truth04 = make_rna_workload(work84, N7_TX, N7_READS, SEED + 7, rna004=True)
         log = io.StringIO()
         with contextlib.redirect_stderr(log):
-            paf04, core04, _, _ = cuda_run("RNA004", fa04, bl04, N7_READS, truth04, 0.75, **RNA_OPT)
+            paf04, core04, dt04, _ = cuda_run("RNA004", fa04, bl04, N7_READS, truth04, 0.75,
+                                              **RNA_OPT)
         print("\n".join(ln for ln in log.getvalue().splitlines() if "RNA004" in ln))
         if core04.pore_flag != jnn.PORE_RNA004 or "Detected RNA004 data" not in log.getvalue():
             fail("the RNA004 header was not detected")
@@ -1532,6 +1652,191 @@ def main() -> None:
                                                [0, D_s // 3, 2 * D_s // 3 + 7, D_s], yp_s, rp_s,
                                                W7 - 1))
         del got_std, q8, fs8, yp_s, rp_s
+
+
+        # ------------------------------------------------------------ 9
+        phase("9 host stages on the device")
+        from sigfish_tpu_torch.io.blow5 import Slow5File
+        from sigfish_tpu_torch.ops import events_device as evm
+        from sigfish_tpu_torch.ops import jnn_device as jdm
+        from sigfish_tpu_torch.ops.events import get_events
+        from sigfish_tpu_torch.runtime import pipeline as pl
+
+        f64_issue = issue * F64_PER_F32_ISSUE
+        clk_hz = clk_max * 1e6
+
+        def same_bytes(a, b) -> bool:
+            a, b = a.contiguous().cpu(), b.contiguous().cpu()
+            return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+                a.view(torch.uint8), b.view(torch.uint8))
+
+        def ev_check(label, args, rna, E):
+            """The events kernel bit for bit against its plain version on
+            the same card tensors; (kernel result, plain ms)."""
+            got = evm.detect_peaks(*args, rna, E)
+            plain_ms, want = once_ms(lambda: evm.detect_peaks_plain(*args, rna, E))
+            bad = [f for f, g, w in zip(evm.Peaks._fields, got, want) if not same_bytes(g, w)]
+            print(f"events kernel vs plain, {label}: bitwise_equal={not bad} "
+                  f"({int(got.overflow.sum())} of {args[0].shape[1]} rows overflow E={E}; plain "
+                  f"{plain_ms:.1f} ms)")
+            if bad:
+                fail(f"the events kernel differs from its plain version ({label}): {bad}")
+            return got, plain_ms
+
+        def pa_check(label, args, pore):
+            got = jdm.polya_end(*args, pore)
+            plain_ms, want = once_ms(lambda: jdm.polya_end_plain(*args, pore))
+            ok = same_bytes(got, want)
+            print(f"polya_end kernel vs plain, {label}: bitwise_equal={ok} "
+                  f"({int((got >= 0).sum())} ends found, {int((got < 0).sum())} -1; plain "
+                  f"{plain_ms:.1f} ms)")
+            if not ok:
+                fail(f"the polya_end kernel differs from its plain version ({label})")
+            return got, plain_ms
+
+        for rna in (False, True):
+            args = evm.batch_tensors(*host_stage_batch(SEED + 9, rna), dev)
+            ev_check(f"64-read fuzz batch (S=8,192), {'RNA' if rna else 'DNA'} windows", args,
+                     rna, evm.event_cap(args[0].shape[0]))
+        args = evm.batch_tensors(*host_stage_batch(SEED + 9, True), dev)
+        for pore, pname in ((jnn.PORE_R9, "R9"), (jnn.PORE_RNA004, "RNA004")):
+            pa_check(f"64-read fuzz batch (S=8,192), {pname}", args, pore)
+
+        def against_host(label, bl_, rna, pore):
+            """Every read's device event table, through the pipeline's
+            buckets, against the host eventizer (get_events) bit for bit,
+            and with RNA -p -1 its device polyA end against the host scan's
+            (a difference is printed, not failed: the device follows the C
+            reference's f32 band, the host its f64 one). Returns the largest
+            bucket: (card tensors, E, nsamples)."""
+            n_reads = n_over = 0
+            bad, py_diff, big = [], [], None
+            t0 = time.time()
+            with Slow5File(bl_) as sf:
+                while True:
+                    blobs = sf.read_batch(BATCH, 1 << 40)
+                    if not blobs:
+                        break
+                    works = [pl.ReadWork(rec=sf.decode_record(b)) for b in blobs]
+                    idx = [i for i, w in enumerate(works) if w.rec.len_raw_signal > 0]
+                    for chunk, sig, ns, dg, of, rg in pl.event_buckets(works, idx):
+                        a = evm.batch_tensors(sig, ns, dg, of, rg, dev)
+                        E = evm.event_cap(sig.shape[1])
+                        tables, _ = evm.assemble_events(evm.detect_peaks(*a, rna, E), ns)
+                        pys = evm.to_host(jdm.polya_end(*a, pore)) if pore is not None else None
+                        if big is None or sig.size > big[0][0].numel():
+                            big = (a, E, ns)
+                        for r, i in enumerate(chunk):
+                            rec = works[i].rec
+                            n_reads += 1
+                            pa = rec.to_pa()
+                            if pys is not None:
+                                hp = jnn.detect_polya_end(rec.raw_signal, pa, pore=pore)
+                                if hp != int(pys[r]):
+                                    py_diff.append((rec.read_id, int(pys[r]), hp))
+                            if tables[r] is None:
+                                n_over += 1
+                                continue
+                            ref = get_events(pa, rna=rna)
+                            if not all(np.array_equal(getattr(tables[r], f), getattr(ref, f))
+                                       for f in ("start", "length", "mean", "stdv")):
+                                bad.append(rec.read_id)
+            print(f"{label}: {n_reads} reads, device event tables vs the host eventizer "
+                  f"bitwise_equal={not bad} ({len(bad)} differ, {n_over} overflow the cap and "
+                  f"take the host path)" + ("" if pore is None else
+                  f"; polyA ends equal to the host scan's for {n_reads - len(py_diff)} of "
+                  f"{n_reads}") + f" ({time.time() - t0:.1f} s)")
+            for rid, d, h in py_diff:
+                print(f"  polyA end of {rid}: device {d}, host scan {h}")
+            if bad:
+                fail(f"{label}: device event tables differ from the host's for {bad[:5]}")
+            return big
+
+        big4 = against_host("phase 4's reads", bl, False, None)
+        big7 = against_host("phase 7's reads", bl7, True, jnn.PORE_R9)
+
+        def bucket_times(label, big, rna, pore=None):
+            """The kernel's ms a launch at a bucket (median of 5), held bit
+            for bit to one plain run, beside its bound and chain floor."""
+            a, E, ns = big
+            Sb, Bb = a[0].shape
+            n_tot, n_max = int(ns.sum()), int(ns.max())
+            if pore is None:
+                got, plain_ms = ev_check(label, a, rna, E)
+                ms = median_ms(lambda: evm.detect_peaks(*a, rna, E), 5)
+                k_tot = int(got.counts.sum())
+                nbytes = 2 * n_tot + 16 * (n_tot + Bb) + 20 * k_tot + 37 * Bb
+                t_ops = n_tot * (EVENTS_F32_OPS / issue + EVENTS_F64_OPS / f64_issue)
+                steps = Sb + n_max
+                floor_cyc = Sb * LAT_F64_ADD + n_max * 2 * LAT_F32
+            else:
+                _, plain_ms = pa_check(label, a, pore)
+                ms = median_ms(lambda: jdm.polya_end(*a, pore), 5)
+                nbytes = 2 * n_tot + 16 * Bb
+                t_ops = n_tot * POLYA_OPS / issue
+                steps = 4 * n_max
+                floor_cyc = steps * 2 * LAT_F32
+            t_bytes = nbytes / PEAK_BYTES
+            bms, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+            floor_ms = floor_cyc / clk_hz * 1e3
+            cyc = ms * 1e-3 * clk_hz / steps
+            print(f"{label}: {ms:.3f} ms a launch (Sb={Sb}, Bb={Bb}, longest read {n_max}); bound "
+                  f"{bms:.4f} ms by {by} ({100 * bms / ms:.2f}%); chain floor {floor_ms:.3f} ms "
+                  f"({floor_cyc / steps:.1f} cycles a step assumed, {cyc:.1f} measured over "
+                  f"{steps} steps); plain {plain_ms:.1f} ms; card: {smi}")
+            return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, floor_ms=floor_ms,
+                        cycles_per_step=cyc, Sb=Sb, Bb=Bb)
+
+        t4 = bucket_times("events at phase 4's largest bucket", big4, False)
+        t7 = bucket_times("events at phase 7's largest bucket", big7, True)
+        p7 = bucket_times("polya_end at phase 7's largest bucket", big7, True, jnn.PORE_R9)
+        del big4, big7, args
+
+        def device_run(label, fa_, bl_, host_paf, host_dt, need_polya, **kw):
+            """run_dtw with --host-stages device on the card, its whole PAF
+            against the host mode's of the same phase in this call."""
+            evm.detect_peaks.launches = 0
+            jdm.polya_end.launches = 0
+            reset_counts()
+            out, c9, dt9 = run_port(fa_, bl_, "cuda", host_stages="device", **kw)
+            n_ev, n_pa = evm.detect_peaks.launches, jdm.polya_end.launches
+            side = c9.span_seconds("host_stages")
+            ok = out == host_paf
+            print(f"{label} with --host-stages device on cuda: {c9.total_reads} reads, {dt9:.3f} s, "
+                  f"{c9.total_reads / dt9:.1f} reads/s end to end beside {c9.total_reads / host_dt:.1f} "
+                  f"in host mode ({host_dt:.3f} s, this call); events launches {n_ev}, polya_end "
+                  f"launches {n_pa}; reads sent to the host path {c9.host_event_reads}; host "
+                  f"stages' device time on the side stream {side:.3f} s, the main thread's wait "
+                  f"for their results {c9.stage_wait:.3f} s; whole PAF byte_identical to host "
+                  f"mode={ok}; card: {smi}")
+            if not ok:
+                fail(f"{label}: the device host stages' PAF differs from the host mode's")
+            if n_ev <= 0 or (need_polya and n_pa <= 0):
+                fail(f"{label}: the run launched no events kernel or, with -p -1, no polya_end")
+            return c9, n_ev, n_pa
+
+        _, launches_ev4, _ = device_run("phase 4", fa, bl, paf, dt, False, state=state)
+        _, launches_ev7, launches_pa7 = device_run("phase 7", fa7, bl7, paf7, dt7, True,
+                                                   state=state7, **RNA_OPT)
+        device_run("RNA004", fa04, bl04, paf04, dt04, True, **RNA_OPT)
+        # the overlap: phase 6's batches spend ~1 s each in the chunked
+        # sDTW; the side stream's results must not wait behind it
+        c6, _, _ = device_run("phase 6", fa6, bl6, paf6, dt6, False, state=state6)
+        n_b6 = len(c6.spans["host_stages"])
+        print(f"overlap on phase 6: the main thread waited {1e3 * c6.stage_wait / n_b6:.1f} ms a "
+              f"bucket for {1e3 * c6.span_seconds("host_stages") / n_b6:.1f} ms of side-stream device time "
+              f"({n_b6} buckets), beside {1e3 * fold_s / n_fold:.1f} ms of chunked sDTW a batch "
+              f"(phase 6's --profile-cpu run); card: {smi}")
+        ppaf9, pcore9, pdt9 = run_port(fa7, bl7, "cuda", state=state7, profile=True,
+                                       host_stages="device", **RNA_OPT)
+        print(f"phase 7 --profile-cpu with --host-stages device ({pdt9:.3f} s, unoverlapped): parse "
+              f"{pcore9.parse_time:.3f} s, events and polyA (device, create_events on the host) "
+              f"{pcore9.event_time:.3f} s, of which {pcore9.span_seconds("host_stages"):.3f} s on the side "
+              f"stream, normalise {pcore9.normalise_time:.3f} s, device + backtrack + PAF "
+              f"{pcore9.dtw_time:.3f} s; host mode (phase 7): events {pcore7.event_time:.3f} s, "
+              f"normalise with the polyA scan {pcore7.normalise_time:.3f} s; card: {smi}")
+        if ppaf9 != paf7:
+            fail("phase 7's --profile-cpu run with --host-stages device differs from host mode")
 
         # the carry entry times the instance phase 6 launched (every launch
         # with start lanes, checked above); the start lanes add B i32 reads
@@ -1603,6 +1908,45 @@ def main() -> None:
                 "bound_ms": probe_bound_ms,
                 "bound_by": probe_bound_by,
                 "library_ms": None,
+            },
+            {
+                "name": "events",
+                "route": "cuda",
+                "source": "sigfish_tpu_torch/csrc/events.cu",
+                "replaces": "sigfish_tpu/ops/events_device.py:264",
+                "launches": launches_ev4,
+                "max_abs_err": 0.0,
+                "ms": t4["ms"],
+                "plain_ms": t4["plain_ms"],
+                "bound_ms": t4["bound_ms"],
+                "bound_by": t4["bound_by"],
+                "library_ms": None,
+                "bucket": [t4["Sb"], t4["Bb"]],
+                "chain_floor_ms": t4["floor_ms"],
+                "cycles_per_step": t4["cycles_per_step"],
+                "launches_rna": launches_ev7,
+                "ms_rna": t7["ms"],
+                "plain_ms_rna": t7["plain_ms"],
+                "bound_ms_rna": t7["bound_ms"],
+                "bucket_rna": [t7["Sb"], t7["Bb"]],
+                "chain_floor_ms_rna": t7["floor_ms"],
+                "cycles_per_step_rna": t7["cycles_per_step"],
+            },
+            {
+                "name": "polya_end",
+                "route": "cuda",
+                "source": "sigfish_tpu_torch/csrc/polya.cu",
+                "replaces": "sigfish_tpu/ops/jnn_device.py:89",
+                "launches": launches_pa7,
+                "max_abs_err": 0.0,
+                "ms": p7["ms"],
+                "plain_ms": p7["plain_ms"],
+                "bound_ms": p7["bound_ms"],
+                "bound_by": p7["bound_by"],
+                "library_ms": None,
+                "bucket": [p7["Sb"], p7["Bb"]],
+                "chain_floor_ms": p7["floor_ms"],
+                "cycles_per_step": p7["cycles_per_step"],
             },
         ]}
     finally:

@@ -1,10 +1,11 @@
 """Command-line interface: `python -m sigfish_tpu_torch.cli dtw|eval`.
 
 The `dtw` option table of sigfish_tpu/cli.py, plus --device, and its
-`eval` subcommand. Every single-device dtw flag with host stages is
-served; the flags of later slices (--host-stages device, --mesh,
---trace and the multi-host flags) are accepted and raise
-NotImplementedError naming the ROADMAP.md item that brings them. --accel
+`eval` subcommand. Every single-device dtw flag is served, with the
+host stages on the host or (--host-stages device) the events and the RNA
+polyA scan on the device; the flags of later slices (--mesh, --trace and
+the multi-host flags) are accepted and raise NotImplementedError naming
+the ROADMAP.md item that brings them. --accel
 and --engine choose among the JAX package's engines; the port picks its
 path with --device, so an explicit value of either is an error that
 names --device.
@@ -71,7 +72,7 @@ def make_dtw_parser(prog: str = "sigfish_tpu_torch dtw") -> argparse.ArgumentPar
     p.add_argument("--profile-cpu", type=_yes_no, default=False, metavar="yes|no", help="process section by section with per-stage timers")
     p.add_argument("--accel", type=_yes_no, default=None, metavar="yes|no", help="the JAX package's engine choice; this port uses --device instead")
     p.add_argument("--engine", choices=["pallas", "scan", "native"], default=None, help="the JAX package's engine choice; this port uses --device instead")
-    p.add_argument("--host-stages", choices=["host", "device"], default="host", help="where eventization runs (only host is served yet)")
+    p.add_argument("--host-stages", choices=["host", "device"], default="host", help="where eventization (and the RNA -p -1 polyA scan) runs: host, per read on the thread pool, or device, per batch on the CUDA kernels (their plain versions with --device cpu) [host]")
     p.add_argument("--ref-chunk", type=int, default=0, metavar="INT", help="reference-axis chunking: 0 auto (past 2^20 columns), -1 never, N>0 always, in segments of about N diagonals [0]")
     p.add_argument("-a", "--sam", action="store_true", help="output in SAM format")
     p.add_argument("--pore", choices=["r9", "r10", "rna004"], default=None, help="pore chemistry [auto]")

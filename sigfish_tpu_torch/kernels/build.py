@@ -33,7 +33,7 @@ NVCC_FLAGS = [
 ]
 
 # one source csrc/<name>.cu per kernel
-KERNELS = ("wavefront", "alu_peak")
+KERNELS = ("wavefront", "alu_peak", "events", "polya")
 
 
 def nvcc_path() -> str:

@@ -6,7 +6,12 @@ with its names and order kept:
   load_db       host   sequential raw-record fetch (src/sigfish.c:274)
   parse/event/
   normalise     host   per read, on a thread pool (native C++ where
-                       built), ref sigfish.c:317-505
+                       built), ref sigfish.c:317-505. With --host-stages
+                       device the events (csrc/events.cu via
+                       ops/events_device.py) and, for RNA -p -1, the polyA
+                       end (csrc/polya.cu via ops/jnn_device.py) of the
+                       whole batch are found on the device instead, on a
+                       stream of the Core's own (_event_batch_device)
   sDTW +
   candidates    DEVICE the wavefront sDTW kernel (csrc/wavefront.cu via
                        ops/sdtw_wavefront.py) over every (contig, strand)
@@ -36,9 +41,9 @@ rna; the chemistry from the header's sequencing_kit or --pore) with its
 3'-end tracks, reversed queries and, with -p -1, the query start found
 after the polyA tail on the host (ops/jnn.detect_polya_end); --sam,
 --from-end, --secondary (parsed, never printed, as in the reference),
---dtw-std, --full-ref and --invert. The rest (--host-stages device,
---mesh) raises NotImplementedError naming the ROADMAP.md item (queue 1)
-that brings it.
+--dtw-std, --full-ref and --invert; and --host-stages device. --mesh
+raises NotImplementedError naming the ROADMAP.md item (queue 1) that
+brings it.
 """
 
 from __future__ import annotations
@@ -79,6 +84,8 @@ from ..ops.chunked_ref import (
     prepare_clip_inputs,
 )
 from ..ops.events import DNA_PARAMS, RNA_PARAMS, get_events, get_events_prefix
+from ..ops.events_device import assemble_events, batch_tensors, detect_peaks, event_cap, to_host
+from ..ops.jnn_device import polya_end
 from ..ops.layout import (
     build_column_maps,
     make_query_batch,
@@ -95,7 +102,6 @@ from ..utils import log_info, log_verbose, log_warning
 # what brings each option that this slice does not serve (ROADMAP.md,
 # queue 1)
 _LATER = {
-    "host_stages": "item 10 (--host-stages device)",
     "mesh": "item 11 (multi-GPU mesh)",
     "trace": "item 6 (--trace, a torch.profiler trace)",
     "hosts": "item 12 (multi-host: --shard, --hosts, --host-id, --coordinator)",
@@ -139,11 +145,13 @@ class Options:
     device: str = "cuda"
 
     def check_slice(self) -> None:
-        """Raise NotImplementedError for an option outside this slice."""
+        """Raise NotImplementedError for an option outside this slice, and
+        SystemExit for an unknown --host-stages, as the JAX package's Core
+        does."""
         if self.mesh:
             raise _later("--mesh", "mesh")
-        if self.host_stages != "host":
-            raise _later(f"--host-stages {self.host_stages}", "host_stages")
+        if self.host_stages not in ("host", "device"):
+            raise SystemExit(f"unknown --host-stages {self.host_stages!r}")
 
 
 @dataclass
@@ -343,13 +351,26 @@ class Core:
         self.routes = {"oneshot": 0, "clip_pass": 0, "chunked": 0, "clip_fold": 0}
         self._routes_lock = threading.Lock()
         # --profile-cpu on the card: CUDA event pairs around each route's
-        # device work, read by span_seconds once the run has drained
-        self.spans = {"oneshot": [], "chunked": []}
+        # device work, read by span_seconds once the run has drained;
+        # "host_stages": around each bucket's work on host_stream, in every
+        # --host-stages device run on the card
+        self.spans = {"oneshot": [], "chunked": [], "host_stages": []}
         # one one-shot submission at a time: each holds its (rows, D)
         # buffers until its launches are queued, and callers on several
         # threads (force_oneshot) would otherwise hold them all at once.
         # The device runs them in turn on one stream either way.
         self._oneshot_lock = threading.Lock()
+        # --host-stages device on the card: the eventizer and polyA kernels
+        # run on this stream, so their results never wait behind the
+        # previous batch's sDTW on the current stream; stage_wait is the
+        # host seconds spent waiting for their results
+        self.host_stream = None
+        if opt.host_stages == "device" and self.device.type == "cuda":
+            self.host_stream = torch.cuda.Stream(self.device)
+        self.stage_wait = 0.0
+        # reads whose events took the host path in device mode: the event
+        # cap overflowed, or the signal alone passed _DEV_EVENT_CELL_CAP
+        self.host_event_reads = 0
 
         # counters (ref core_t)
         self.total_reads = 0
@@ -411,7 +432,8 @@ class Core:
 
     def span_seconds(self, route: str) -> float:
         """Device seconds inside spans[route] (a --profile-cpu run on the
-        card, one batch in flight at a time, so no two spans overlap)."""
+        card, one batch in flight at a time, so no two spans overlap; for
+        "host_stages" any run, its spans in order on one stream)."""
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in self.spans[route]) / 1e3
 
@@ -650,6 +672,9 @@ class ReadWork:
     query: np.ndarray | None = None  # z-scored (and RNA-reversed) slice
     pa: np.ndarray | None = None  # cached pA conversion (to_pa is pure)
     out: str | None = None
+    # --host-stages device, RNA -p -1: the polyA end found on the device
+    # (-1 = failed); None = not computed
+    device_py: int | None = None
     skip: bool = False  # len_raw_signal==0 or ignored
     # per-read counter flags, tallied by the main thread (avoids races)
     flag_prefix_fail: bool = False
@@ -680,6 +705,106 @@ def _event_single(core: Core, w: ReadWork) -> ReadWork:
     if et.n <= 0:
         w.skip = True
     return w
+
+
+# --host-stages device: ceiling on padded (Sb, Bb) eventization plane
+# cells (that of the JAX package, so the same long reads take the host
+# path). At the cap the kernel's two f64 prefix planes take 0.5 GB.
+_DEV_EVENT_CELL_CAP = 1 << 25
+
+
+def event_buckets(works: list[ReadWork], idx: list[int]):
+    """The device eventizer's buckets of works[idx] (the JAX package's):
+    reads sorted by signal length and chunked, each chunk padded to a
+    power-of-two (Sb >= 1024, Bb) bucket, Bb >= min(64, max_b) with
+    max_b = _DEV_EVENT_CELL_CAP // Sb. Yields (chunk, signals (Bb, Sb)
+    i16, nsamples, digitisation, offset, range) per bucket; the chunk's
+    reads fill its first rows. The output does not depend on the
+    chunking, but the limits decide which long reads take the host path."""
+    idx = sorted(idx, key=lambda i: works[i].rec.len_raw_signal)
+    c0 = 0
+    while c0 < len(idx):
+        S = works[idx[c0]].rec.len_raw_signal
+        Sb = 1024
+        while Sb < S:
+            Sb *= 2
+        max_b = max(1, _DEV_EVENT_CELL_CAP // Sb)
+        c1 = c0 + 1
+        while c1 < len(idx) and c1 - c0 < max_b and works[idx[c1]].rec.len_raw_signal <= Sb:
+            c1 += 1
+        chunk = idx[c0:c1]
+        c0 = c1
+        Bb = min(64, max_b)
+        while Bb < len(chunk):
+            Bb *= 2
+        sig = np.zeros((Bb, Sb), np.int16)
+        ns = np.zeros(Bb, np.int32)
+        digi = np.full(Bb, 1.0)
+        off = np.zeros(Bb)
+        rng_pa = np.full(Bb, 1.0)
+        for r, i in enumerate(chunk):
+            rec = works[i].rec
+            sig[r, : rec.len_raw_signal] = rec.raw_signal
+            ns[r] = rec.len_raw_signal
+            digi[r] = rec.digitisation
+            off[r] = rec.offset
+            rng_pa[r] = rec.range
+        yield chunk, sig, ns, digi, off, rng_pa
+
+
+def _event_batch_device(core: Core, works: list[ReadWork]) -> None:
+    """--host-stages device: eventize the batch on the device instead of
+    per read on the host, and with RNA -p -1 (not --from-end) find each
+    read's polyA end there too (device_py). Fills event_start/length/mean
+    and n_events in place. A read whose signal alone passes
+    _DEV_EVENT_CELL_CAP, or whose events overflow its bucket's cap, takes
+    the exact host path (_event_single); core.host_event_reads counts them.
+    Output-identical to the host mode: the tables are bit-equal to
+    _event_single's. On the card the work runs on core.host_stream, and
+    this thread waits only on events recorded behind it."""
+    opt = core.opt
+    idx = [i for i, w in enumerate(works) if not w.skip]
+    long_idx = [i for i in idx if works[i].rec.len_raw_signal > _DEV_EVENT_CELL_CAP]
+    for i in long_idx:
+        _event_single(core, works[i])
+    core.host_event_reads += len(long_idx)
+    drop = set(long_idx)
+    want_py = opt.rna and opt.prefix_size < 0 and not opt.from_end
+    stream = core.host_stream
+    for chunk, sig, ns, digi, off, rng_pa in event_buckets(
+        works, [i for i in idx if i not in drop]
+    ):
+        with torch.cuda.stream(stream):  # no stream on the CPU: a no-op
+            if stream is not None:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e0.record(stream)
+            args = batch_tensors(sig, ns, digi, off, rng_pa, core.device)
+            res = detect_peaks(*args, opt.rna, event_cap(sig.shape[1]))
+            pys = polya_end(*args, core.pore_flag) if want_py else None
+            if stream is not None:
+                e1 = torch.cuda.Event(enable_timing=True)
+                e1.record(stream)
+                core.spans["host_stages"].append((e0, e1))
+            t0 = time.time()
+            tables, _ = assemble_events(res, ns)
+            if pys is not None:
+                pys = to_host(pys)
+            core.stage_wait += time.time() - t0
+        for r, i in enumerate(chunk):
+            w = works[i]
+            if pys is not None:
+                w.device_py = int(pys[r])
+            et = tables[r]
+            if et is None:  # the bucket's event cap overflowed: host path
+                core.host_event_reads += 1
+                _event_single(core, w)
+                continue
+            w.event_start = et.start
+            w.event_length = et.length
+            w.event_mean = et.mean.copy()
+            w.n_events = et.n
+            if et.n <= 0:
+                w.skip = True
 
 
 def _normalise_single(core: Core, w: ReadWork, py: int | None = None) -> ReadWork:
@@ -972,16 +1097,26 @@ def submit_batch(core: Core, blobs: list[bytes]) -> PendingBatch:
     def _map(fn, items):
         return _pool_map(core._pool, fn, items)
 
+    device_stages = opt.host_stages == "device"
     if opt.profile:
         t0 = time.time()
         works = _map(lambda b: _parse_single(core, b), blobs)
         core.parse_time += time.time() - t0
         t0 = time.time()
-        works = _map(lambda w: _event_single(core, w), works)
+        if device_stages:
+            _event_batch_device(core, works)
+        else:
+            works = _map(lambda w: _event_single(core, w), works)
         core.event_time += time.time() - t0
         t0 = time.time()
-        works = _map(lambda w: _normalise_single(core, w), works)
+        works = _map(lambda w: _normalise_single(core, w, py=w.device_py), works)
         core.normalise_time += time.time() - t0
+    elif device_stages:
+        # parse on the pool, the batch's events (and polyA ends) on the
+        # device from this thread, then the per-read windows on the pool
+        works = _map(lambda b: _parse_single(core, b), blobs)
+        _event_batch_device(core, works)
+        works = _map(lambda w: _normalise_single(core, w, py=w.device_py), works)
     else:
         works = _map(lambda b: _prepare_read(core, b), blobs)
     dtw_t0 = time.time()

@@ -155,15 +155,16 @@ def test_cuda_core_without_gpu_raises(pair):
     dict(mesh="2x1"), dict(host_stages="device"), dict(rna=True, full_ref=True),
 ])
 def test_later_options_raise(pair, kw):
-    """--mesh and --host-stages device raise naming their ROADMAP item.
-    The other options here were refused by earlier slices and are served
-    now: each maps the reads to the JAX package's bytes (native engine)."""
+    """--mesh raises naming its ROADMAP item. The other options here were
+    refused by earlier slices and are served now, --host-stages device
+    among them: each maps the reads to the JAX package's bytes (native
+    engine, the same option)."""
     import io
 
     from sigfish_tpu.runtime.pipeline import run_dtw as j_run_dtw
 
     fa, bl = pair
-    if "mesh" in kw or "host_stages" in kw:
+    if "mesh" in kw:
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
             tp.Core(fa, bl, tp.Options(device="cpu", **kw))
         return

@@ -236,3 +236,80 @@ def test_wavefront_kernel_refuses_unbuilt_width(cuda_device):
     y = torch.zeros((1, 512), device=cuda_device)
     with pytest.raises(ValueError, match="kernel takes"):
         wf.sdtw_wavefront(q, y, y.clone(), 50)
+
+
+def _load_smoke():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _same_bytes(a, b) -> bool:
+    a, b = a.contiguous().cpu(), b.contiguous().cpu()
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rna", [False, True])
+def test_events_kernel_bitwise_vs_plain(cuda_device, rna):
+    """csrc/events.cu against detect_peaks_plain on the card: the prefix
+    planes, peaks, counts, overflow flags and gathered sums, bit for bit,
+    on the fuzz mix with an overflowing read; the launch is counted once."""
+    from sigfish_tpu_torch.ops import events_device as ev
+
+    args = ev.batch_tensors(*_load_smoke().host_stage_batch(5 + rna, rna, S=4096), cuda_device)
+    E = ev.event_cap(4096)
+    before = ev.detect_peaks.launches
+    got = ev.detect_peaks(*args, rna, E)
+    torch.cuda.synchronize()
+    assert ev.detect_peaks.launches == before + 1
+    want = ev.detect_peaks_plain(*args, rna, E)
+    for name, g, w in zip(ev.Peaks._fields, got, want):
+        assert _same_bytes(g, w), name
+    assert bool(got.overflow.any()) == (not rna)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pore", [0, 2])
+def test_polya_kernel_bitwise_vs_plain(cuda_device, pore):
+    """csrc/polya.cu against polya_end_plain on the card (R9 and RNA004
+    parameters), polyA-shaped, noise, short and empty reads."""
+    from sigfish_tpu_torch.ops import events_device as ev
+    from sigfish_tpu_torch.ops import jnn_device as jd
+
+    args = ev.batch_tensors(*_load_smoke().host_stage_batch(7, True), cuda_device)
+    before = jd.polya_end.launches
+    got = jd.polya_end(*args, pore)
+    torch.cuda.synchronize()
+    assert jd.polya_end.launches == before + 1
+    want = jd.polya_end_plain(*args, pore)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert int((got >= 0).sum()) >= 10 and int((got < 0).sum()) >= 3
+
+
+@pytest.mark.gpu
+def test_host_stages_device_on_the_card(cuda_device, tmp_path):
+    """--host-stages device on the card: the PAF equals the host mode's,
+    and both kernels ran on the Core's own stream."""
+    from sigfish_tpu_torch.ops import events_device as ev
+    from sigfish_tpu_torch.ops import jnn_device as jd
+    from sigfish_tpu_torch.runtime import pipeline as tp
+
+    smoke = _load_smoke()
+    fa, bl, _ = smoke.make_rna_workload(str(tmp_path), 6, 24, 9, tx_len=(600, 1400))
+    opt = dict(rna=True, query_size=500, prefix_size=-1, batch_size=16, num_thread=2)
+    pafs = []
+    for hs in ("host", "device"):
+        before = (ev.detect_peaks.launches, jd.polya_end.launches)
+        core = tp.Core(fa, bl, tp.Options(device="cuda", host_stages=hs, **opt))
+        out = io.StringIO()
+        tp.run_dtw(core, out)
+        core.close()
+        pafs.append(out.getvalue())
+        ran = (ev.detect_peaks.launches > before[0], jd.polya_end.launches > before[1])
+        assert ran == ((True, True) if hs == "device" else (False, False))
+        assert (core.host_stream is not None) == (hs == "device")
+    assert pafs[0] == pafs[1] != ""

@@ -112,7 +112,9 @@ _MODULES = [
     "sigfish_tpu_torch.ops.candidates_dev",
     "sigfish_tpu_torch.ops.chunked_ref",
     "sigfish_tpu_torch.ops.events",
+    "sigfish_tpu_torch.ops.events_device",
     "sigfish_tpu_torch.ops.jnn",
+    "sigfish_tpu_torch.ops.jnn_device",
     "sigfish_tpu_torch.ops.layout",
     "sigfish_tpu_torch.ops.sdtw_ref",
     "sigfish_tpu_torch.ops.sdtw_wavefront",
