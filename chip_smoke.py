@@ -152,24 +152,33 @@ no result line) if any of them fails:
               chain (every warps instance and a mixed one) against it and
               the one-shot launch.
   9. host     --host-stages device: the events kernel (csrc/events.cu)
-     stages   bit for bit against its plain version on a 64-read fuzz batch
-              (S=8,192: stepwise, noise, near-flat, short and polyA-shaped
-              reads and one whose events overflow the cap) with DNA and
-              RNA windows, and the polyA kernel (csrc/polya.cu) with R9
-              and RNA004 parameters; every read of phases 4 and 7 through
+     stages   bit for bit against its plain version, whole and each of its
+              four stages (prefix, t-stat, detector, gather) alone on the
+              plain version's inputs, on a 64-read fuzz batch (S=8,192:
+              stepwise, noise, near-flat, short and polyA-shaped reads and
+              one whose events overflow the cap) and on the ragged-edge
+              batch (B=37 and its first 32 rows) with DNA and RNA
+              windows, and the polyA kernel (csrc/polya.cu) with R9
+              and RNA004 parameters on the fuzz and ragged batches; every
+              read of phases 4 and 7 through
               the pipeline's buckets, its event table bit for bit against
               the host eventizer (reads whose polyA end differs from the
               host scan's are printed); each kernel's ms a launch at the
               largest bucket of phase 4 (events) and phase 7 (both), held
-              bit for bit to one plain run, beside its bound and chain
-              floor; run_dtw with --host-stages device on the card over
+              bit for bit (events stage by stage) to one plain run, beside
+              its bound and chain floor, the events stages' ms alone and
+              the prefix and detector cycles a step, and ptxas' report of
+              every entry (registers, shared memory, spills);
+              run_dtw with --host-stages device on the card over
               phase 4's, phase 7's, phase 8's RNA004 and phase 6's reads,
               each whole PAF byte-identical to the host mode's, with the
               launch counts (> 0), the reads sent to the host path, reads/s
               beside host mode's, and the main thread's wait for the side
-              stream beside its device time (phase 6: the overlap with
-              the chunked sDTW); and phase 7's --profile-cpu stage split
-              in device mode.
+              stream's results (split into the wait for the kernels and
+              assemble_events' own time) beside their device time (phase
+              6: the overlap with the chunked sDTW); and phase 7's
+              --profile-cpu stage split in device mode, with the same
+              wait split.
 
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -237,6 +246,10 @@ F64_PER_F32_ISSUE = 0.5
 # (the running mean, the state machines' carried state)
 LAT_F64_ADD = 8
 LAT_F32 = 4
+
+# the events kernel's stage times in the kernels line (a stage alone)
+EVENT_STAGE_KEYS = ("ms_prefix", "ms_tstat", "ms_detector", "ms_gather",
+                    "cycles_per_step_prefix", "cycles_per_step_detector")
 
 # ALU probe iterations per launch (the bench's default)
 PROBE_ITERS = 16384
@@ -483,6 +496,72 @@ def host_stage_batch(seed: int, rna: bool, S: int = 8_192, n: int = 64):
             np.full(n, 1400.0))
 
 
+def _plane(sigs, S: int, offset=(5.0, 10.0)):
+    """(B, S) i16 rows of sigs, zero-padded, with nsamples (B,) i32 and
+    digitisation, offset (alternating), range (B,) f64."""
+    import numpy as np
+
+    n = len(sigs)
+    sig = np.zeros((n, S), np.int16)
+    ns = np.zeros(n, np.int32)
+    for b, x in enumerate(sigs):
+        sig[b, : x.size] = x[:S]
+        ns[b] = min(x.size, S)
+    return (sig, ns, np.full(n, 8192.0), np.where(np.arange(n) % 2, *offset),
+            np.full(n, 1400.0))
+
+
+def edge_event_batch(seed: int, rna: bool, S: int = 1_000):
+    """The eventizer's ragged edges in one batch of 37 reads (B not a
+    multiple of 8, so the wrapper pads it to 40 lanes; its first 32
+    rows are one whole warp) over S = 1,000 samples, a multiple of
+    neither ring tile (64 and 32 steps): reads of 0, 1, 2 samples, at
+    and around w1, 2 * w2 and the tiles, of S samples (model-like and
+    noise), a read of S stepping every 3 samples (with DNA windows its
+    events overflow the cap S // 4), a noiseless stepped read, and the
+    fuzz mix cut to S."""
+    import numpy as np
+
+    from sigfish_tpu_torch.ops.events import DNA_PARAMS, RNA_PARAMS
+
+    rng = np.random.default_rng(seed)
+    prm = RNA_PARAMS if rna else DNA_PARAMS
+    w1, w2 = prm["window_length1"], prm["window_length2"]
+    lens = [0, 1, 2, w1, 2 * w1, 2 * w2 - 1, 2 * w2, 2 * w2 + 1, 31, 32, 33, 127, 128, 129,
+            161, S - 1, S, S]
+    sigs = [np.clip(np.rint(np.repeat(rng.normal(90.0, 12.0, n // 8 + 1),
+                                      8)[:n] * 8192.0 / 1400.0 - 5.0 + rng.normal(0, 9.0, n)),
+                    -30000, 30000).astype(np.int16) for n in lens[:-1]]
+    sigs.append(rng.integers(300, 900, S).astype(np.int16))
+    steps3 = np.repeat(rng.integers(-20000, 20000, S // 3 + 1), 3)[:S]
+    sigs.append((steps3 + rng.integers(-3, 4, S)).astype(np.int16))
+    sigs.append(np.repeat(rng.integers(300, 900, S // 20), 20).astype(np.int16))
+    sigs += fuzz_reads(rng, 37 - len(sigs), rna)
+    return _plane(sigs, S)
+
+
+def edge_polya_batch(seed: int, S: int = 8_292):
+    """The polyA scan's ragged edges in one batch of 37 reads over S =
+    8,292 samples (not a multiple of the 256-step ring tile): reads of
+    0, 1, 1,999, 2,000 (the rolling window) and 2,001 samples, noise and
+    a flat read (no adaptor), adaptor and polyA with a tail of 0 to 200
+    samples (the last walk as short as the rolling window lets it be: the
+    adaptor ends at least 1,002 samples before n), a polyA-shaped read
+    cut at S, and direct-RNA-shaped reads."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sigs = [rng.integers(300, 900, n).astype(np.int16) for n in (0, 1, 1_999, 2_000, 2_001)]
+    sigs += [rng.integers(-100, 1300, 7_000).astype(np.int16), np.full(6_000, 300, np.int16)]
+    for tail in (0, 1, 60, 200):
+        sigs += polya_reads(rng, 2, adaptor=(3_000, 4_000), polya=(1_200, 1_600),
+                            tail=(tail, tail + 1))
+    sigs += polya_reads(rng, 1, adaptor=(4_000, 4_001), polya=(2_000, 2_001),
+                        tail=(3_000, 3_001))
+    sigs += polya_reads(rng, 37 - len(sigs))
+    return _plane(sigs, S, offset=(10.0, 10.0))
+
+
 def subset_blow5(bl: str, out: str, keep, header=None) -> None:
     """Copy the records whose read id is in `keep` into a new BLOW5
     (header: its header_data, genomic_dna by default)."""
@@ -596,6 +675,31 @@ def ptxas_instances(report: str) -> list[tuple[str, int, int, int]]:
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
             out.append((entry, int(m.group(1)), *spills))
+            entry, spills = None, (0, 0)
+    return out
+
+
+def ptxas_table(report: str) -> list[dict]:
+    """Each kernel entry of an nvcc -Xptxas -v report: its short name (the
+    kernel's name), registers, static shared memory and spill bytes."""
+    import re
+
+    out, entry, spills = [], None, (0, 0)
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            # _ZN..._GLOBAL__N_..._13prefix_kernelEPKs...: the first lower-case name
+            k = re.search(r"([a-z][a-z_]*_kernel)", m.group(1))
+            entry = m.group(1) if k is None else k.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(dict(entry=entry, registers=int(m.group(1)),
+                            smem=int(smem.group(1)) if smem else 0,
+                            spill_stores=spills[0], spill_loads=spills[1]))
             entry, spills = None, (0, 0)
     return out
 
@@ -1672,16 +1776,39 @@ def main() -> None:
 
         def ev_check(label, args, rna, E):
             """The events kernel bit for bit against its plain version on
-            the same card tensors; (kernel result, plain ms)."""
+            the same card tensors, whole and stage by stage (each stage
+            given the plain version's inputs); (kernel result, plain ms,
+            the plain stages' outputs)."""
+            prm = evm.RNA_PARAMS if rna else evm.DNA_PARAMS
+            sig_t, ns_t, ru_t, of_t = args
+
+            def plain():
+                A, Q = evm.prefix_sums_plain(evm.pa_plain(sig_t, ru_t, of_t), ns_t)
+                t1 = evm.tstat_plain(A, Q, ns_t, prm["window_length1"])
+                t2 = evm.tstat_plain(A, Q, ns_t, prm["window_length2"])
+                pk, cn, ov = evm.detector_plain(t1, t2, ns_t, prm, E)
+                return evm.Peaks(A, Q, pk, cn, ov, *evm._gather(A, Q, pk, ns_t)), t1, t2
+
             got = evm.detect_peaks(*args, rna, E)
-            plain_ms, want = once_ms(lambda: evm.detect_peaks_plain(*args, rna, E))
+            plain_ms, (want, t1, t2) = once_ms(plain)
             bad = [f for f, g, w in zip(evm.Peaks._fields, got, want) if not same_bytes(g, w)]
-            print(f"events kernel vs plain, {label}: bitwise_equal={not bad} "
+            stages = {
+                "prefix": (evm.prefix_stage(*args), (want.A, want.Q, want.end_sum, want.end_sumsq)),
+                "tstat": (evm.tstat_stage(want.A, want.Q, ns_t, rna), (t1, t2)),
+                "detector": (evm.detector_stage(t1, t2, ns_t, rna, E),
+                             (want.peaks, want.counts, want.overflow)),
+                "gather": (evm.gather_stage(want.A, want.Q, want.peaks, want.counts, ns_t),
+                           (want.psum, want.psumsq)),
+            }
+            bad_st = [k for k, (g, w) in stages.items()
+                      if not all(same_bytes(x, y) for x, y in zip(g, w))]
+            print(f"events kernel vs plain, {label}: bitwise_equal={not bad}, each stage "
+                  f"(prefix, tstat, detector, gather) bitwise_equal={not bad_st} "
                   f"({int(got.overflow.sum())} of {args[0].shape[1]} rows overflow E={E}; plain "
                   f"{plain_ms:.1f} ms)")
-            if bad:
-                fail(f"the events kernel differs from its plain version ({label}): {bad}")
-            return got, plain_ms
+            if bad or bad_st:
+                fail(f"the events kernel differs from its plain version ({label}): {bad} {bad_st}")
+            return got, plain_ms, (want, t1, t2)
 
         def pa_check(label, args, pore):
             got = jdm.polya_end(*args, pore)
@@ -1695,12 +1822,22 @@ def main() -> None:
             return got, plain_ms
 
         for rna in (False, True):
+            wn = "RNA" if rna else "DNA"
             args = evm.batch_tensors(*host_stage_batch(SEED + 9, rna), dev)
-            ev_check(f"64-read fuzz batch (S=8,192), {'RNA' if rna else 'DNA'} windows", args,
-                     rna, evm.event_cap(args[0].shape[0]))
+            ev_check(f"64-read fuzz batch (S=8,192), {wn} windows", args, rna,
+                     evm.event_cap(args[0].shape[0]))
+            edges = edge_event_batch(SEED + 9, rna)
+            for rows in (37, 32):
+                args = evm.batch_tensors(*(a[:rows] for a in edges), dev)
+                ev_check(f"ragged-edge batch (S=1,000, B={rows}), {wn} windows", args, rna,
+                         evm.event_cap(args[0].shape[0]))
         args = evm.batch_tensors(*host_stage_batch(SEED + 9, True), dev)
+        edges = edge_polya_batch(SEED + 9)
         for pore, pname in ((jnn.PORE_R9, "R9"), (jnn.PORE_RNA004, "RNA004")):
             pa_check(f"64-read fuzz batch (S=8,192), {pname}", args, pore)
+            for rows in (37, 32):
+                pa_check(f"ragged-edge batch (S=8,292, B={rows}), {pname}",
+                         evm.batch_tensors(*(a[:rows] for a in edges), dev), pore)
 
         def against_host(label, bl_, rna, pore):
             """Every read's device event table, through the pipeline's
@@ -1757,18 +1894,31 @@ def main() -> None:
 
         def bucket_times(label, big, rna, pore=None):
             """The kernel's ms a launch at a bucket (median of 5), held bit
-            for bit to one plain run, beside its bound and chain floor."""
+            for bit to one plain run, beside its bound and chain floor; for
+            events also each stage's ms alone (median of 5, on the plain
+            run's inputs) and its cycles a step."""
             a, E, ns = big
             Sb, Bb = a[0].shape
             n_tot, n_max = int(ns.sum()), int(ns.max())
+            extra = {}
             if pore is None:
-                got, plain_ms = ev_check(label, a, rna, E)
+                got, plain_ms, (want, t1, t2) = ev_check(label, a, rna, E)
                 ms = median_ms(lambda: evm.detect_peaks(*a, rna, E), 5)
                 k_tot = int(got.counts.sum())
                 nbytes = 2 * n_tot + 16 * (n_tot + Bb) + 20 * k_tot + 37 * Bb
                 t_ops = n_tot * (EVENTS_F32_OPS / issue + EVENTS_F64_OPS / f64_issue)
                 steps = Sb + n_max
                 floor_cyc = Sb * LAT_F64_ADD + n_max * 2 * LAT_F32
+                ns_t = a[1]
+                extra = dict(
+                    ms_prefix=median_ms(lambda: evm.prefix_stage(*a), 5),
+                    ms_tstat=median_ms(lambda: evm.tstat_stage(want.A, want.Q, ns_t, rna), 5),
+                    ms_detector=median_ms(lambda: evm.detector_stage(t1, t2, ns_t, rna, E), 5),
+                    ms_gather=median_ms(lambda: evm.gather_stage(
+                        want.A, want.Q, want.peaks, want.counts, ns_t), 5))
+                extra["cycles_per_step_prefix"] = extra["ms_prefix"] * 1e-3 * clk_hz / Sb
+                extra["cycles_per_step_detector"] = extra["ms_detector"] * 1e-3 * clk_hz / n_max
+                del got, want, t1, t2
             else:
                 _, plain_ms = pa_check(label, a, pore)
                 ms = median_ms(lambda: jdm.polya_end(*a, pore), 5)
@@ -1784,13 +1934,28 @@ def main() -> None:
                   f"{bms:.4f} ms by {by} ({100 * bms / ms:.2f}%); chain floor {floor_ms:.3f} ms "
                   f"({floor_cyc / steps:.1f} cycles a step assumed, {cyc:.1f} measured over "
                   f"{steps} steps); plain {plain_ms:.1f} ms; card: {smi}")
+            if extra:
+                print(f"  stages alone: prefix {extra['ms_prefix']:.3f} ms "
+                      f"({extra['cycles_per_step_prefix']:.1f} cycles a step over {Sb}), t-stat "
+                      f"{extra['ms_tstat']:.3f} ms, detector {extra['ms_detector']:.3f} ms "
+                      f"({extra['cycles_per_step_detector']:.1f} cycles a step over {n_max}), "
+                      f"gather {extra['ms_gather']:.3f} ms; card: {smi}")
             return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, floor_ms=floor_ms,
-                        cycles_per_step=cyc, Sb=Sb, Bb=Bb)
+                        cycles_per_step=cyc, Sb=Sb, Bb=Bb, **extra)
 
         t4 = bucket_times("events at phase 4's largest bucket", big4, False)
         t7 = bucket_times("events at phase 7's largest bucket", big7, True)
         p7 = bucket_times("polya_end at phase 7's largest bucket", big7, True, jnn.PORE_R9)
         del big4, big7, args
+        ptx_ev, ptx_pa = ptxas_table(reports["events"]), ptxas_table(reports["polya"])
+        # the dynamic shared memory each entry asks for at launch
+        dyn = {"detector_kernel": evm.detector_smem_bytes(), "polya_kernel": jdm.ring_bytes()}
+        for table in (ptx_ev, ptx_pa):
+            for r in table:
+                r["dynamic_smem"] = dyn.get(r["entry"], 0)
+                print(f"  ptxas {r['entry']}: {r['registers']} registers, {r['smem']} bytes static "
+                      f"shared memory, {r['dynamic_smem']} dynamic, {r['spill_stores']} bytes "
+                      f"spill stores, {r['spill_loads']} bytes spill loads")
 
         def device_run(label, fa_, bl_, host_paf, host_dt, need_polya, **kw):
             """run_dtw with --host-stages device on the card, its whole PAF
@@ -1807,8 +1972,9 @@ def main() -> None:
                   f"in host mode ({host_dt:.3f} s, this call); events launches {n_ev}, polya_end "
                   f"launches {n_pa}; reads sent to the host path {c9.host_event_reads}; host "
                   f"stages' device time on the side stream {side:.3f} s, the main thread's wait "
-                  f"for their results {c9.stage_wait:.3f} s; whole PAF byte_identical to host "
-                  f"mode={ok}; card: {smi}")
+                  f"for their results {c9.stage_wait:.3f} s: {c9.stage_sync:.3f} s for the side "
+                  f"stream, {c9.stage_wait - c9.stage_sync:.3f} s in assemble_events and the "
+                  f"copies; whole PAF byte_identical to host mode={ok}; card: {smi}")
             if not ok:
                 fail(f"{label}: the device host stages' PAF differs from the host mode's")
             if n_ev <= 0 or (need_polya and n_pa <= 0):
@@ -1832,7 +1998,10 @@ def main() -> None:
         print(f"phase 7 --profile-cpu with --host-stages device ({pdt9:.3f} s, unoverlapped): parse "
               f"{pcore9.parse_time:.3f} s, events and polyA (device, create_events on the host) "
               f"{pcore9.event_time:.3f} s, of which {pcore9.span_seconds("host_stages"):.3f} s on the side "
-              f"stream, normalise {pcore9.normalise_time:.3f} s, device + backtrack + PAF "
+              f"stream; the main thread waited {pcore9.stage_wait:.3f} s: "
+              f"{pcore9.stage_sync:.3f} s for the side stream, "
+              f"{pcore9.stage_wait - pcore9.stage_sync:.3f} s in assemble_events and the copies; "
+              f"normalise {pcore9.normalise_time:.3f} s, device + backtrack + PAF "
               f"{pcore9.dtw_time:.3f} s; host mode (phase 7): events {pcore7.event_time:.3f} s, "
               f"normalise with the polyA scan {pcore7.normalise_time:.3f} s; card: {smi}")
         if ppaf9 != paf7:
@@ -1924,6 +2093,7 @@ def main() -> None:
                 "bucket": [t4["Sb"], t4["Bb"]],
                 "chain_floor_ms": t4["floor_ms"],
                 "cycles_per_step": t4["cycles_per_step"],
+                **{k: t4[k] for k in EVENT_STAGE_KEYS},
                 "launches_rna": launches_ev7,
                 "ms_rna": t7["ms"],
                 "plain_ms_rna": t7["plain_ms"],
@@ -1931,6 +2101,8 @@ def main() -> None:
                 "bucket_rna": [t7["Sb"], t7["Bb"]],
                 "chain_floor_ms_rna": t7["floor_ms"],
                 "cycles_per_step_rna": t7["cycles_per_step"],
+                **{f"{k}_rna": t7[k] for k in EVENT_STAGE_KEYS},
+                "ptxas": ptx_ev,
             },
             {
                 "name": "polya_end",
@@ -1947,6 +2119,7 @@ def main() -> None:
                 "bucket": [p7["Sb"], p7["Bb"]],
                 "chain_floor_ms": p7["floor_ms"],
                 "cycles_per_step": p7["cycles_per_step"],
+                "ptxas": ptx_pa,
             },
         ]}
     finally:

@@ -26,6 +26,16 @@ create_events (events.c:461-508) stays on the host in numpy, as in the
 JAX package, so only O(B x E) values come back. An overflowing read gets
 None and takes the host path (runtime/pipeline._event_batch_device).
 
+On the card one detect_peaks call is one sf_events call: four launches
+in order (prefix, t-stat, detector, gather; csrc/events.cu), with the two
+t-stat planes as (S, B) f32 scratch the wrapper allocates. The *_stage
+functions run one stage alone, for checks and stage times: on a CPU
+tensor its plain version, on a CUDA tensor its launch (not counted in
+detect_peaks.launches, which counts whole eventizer calls). The kernels'
+rings copy 16-byte chunks of a time-major row, so on the card a batch
+runs lane_width(B) reads wide, the added lanes reads of 0 samples, and
+the results are cut back to B.
+
 The stages' order is fixed bit for bit: the prefix sums are a loop over
 samples (never torch.cumsum, whose CUDA order is a parallel scan), and
 the detector a loop over steps with (B,) state lanes. The card's f64 is
@@ -63,6 +73,26 @@ class Peaks(NamedTuple):
     psumsq: torch.Tensor
     end_sum: torch.Tensor
     end_sumsq: torch.Tensor
+
+
+LANE_ALIGN = 8  # i16 columns in a 16-byte chunk
+
+
+def lane_width(B: int) -> int:
+    """The batch width the card kernels run at: B rounded up to a
+    multiple of LANE_ALIGN, so each row of a plane is whole chunks."""
+    return -(-B // LANE_ALIGN) * LANE_ALIGN
+
+
+def pad_lanes(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t (..., B) as a contiguous, 16-byte-aligned (..., width) tensor,
+    zero in the added columns; t itself when it is one already."""
+    B = t.shape[-1]
+    if B == width and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((*t.shape[:-1], width))
+    out[..., :B] = t
+    return out
 
 
 def event_cap(S: int) -> int:
@@ -299,32 +329,142 @@ def detect_peaks(
         raise ValueError(f"detect_peaks: unsupported device {sig_t.device}")
     params = RNA_PARAMS if rna else DNA_PARAMS
     dev = sig_t.device
-    sig_t = sig_t.contiguous()
+    W = lane_width(B)
+    sig_t, nsamples, raw_unit, offset = (pad_lanes(t, W) for t in (sig_t, nsamples, raw_unit,
+                                                                   offset))
     f64 = dict(dtype=torch.float64, device=dev)
-    A = torch.empty((S + 1, B), **f64)
-    Q = torch.empty((S + 1, B), **f64)
-    peaks = torch.zeros((B, E), dtype=torch.int32, device=dev)
-    counts = torch.empty(B, dtype=torch.int32, device=dev)
-    overflow = torch.empty(B, dtype=torch.bool, device=dev)
-    psum = torch.zeros((B, E), **f64)
-    psumsq = torch.zeros((B, E), **f64)
-    end_sum = torch.empty(B, **f64)
-    end_sumsq = torch.empty(B, **f64)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().sf_events(
-        sig_t.data_ptr(), nsamples.data_ptr(), raw_unit.data_ptr(), offset.data_ptr(), S, B, E,
+    A = torch.empty((S + 1, W), **f64)
+    Q = torch.empty((S + 1, W), **f64)
+    # every output is written whole: the gather zeroes the unused slots
+    peaks = torch.empty((W, E), dtype=torch.int32, device=dev)
+    counts = torch.empty(W, dtype=torch.int32, device=dev)
+    overflow = torch.empty(W, dtype=torch.bool, device=dev)
+    psum = torch.empty((W, E), **f64)
+    psumsq = torch.empty((W, E), **f64)
+    end_sum = torch.empty(W, **f64)
+    end_sumsq = torch.empty(W, **f64)
+    t1, t2 = (torch.empty((S, W), dtype=torch.float32, device=dev) for _ in range(2))
+    _check(_library().sf_events(
+        sig_t.data_ptr(), nsamples.data_ptr(), raw_unit.data_ptr(), offset.data_ptr(), S, W, E,
         params["window_length1"], params["window_length2"], params["threshold1"],
         params["threshold2"], params["peak_height"], A.data_ptr(), Q.data_ptr(),
         peaks.data_ptr(), counts.data_ptr(), overflow.data_ptr(), psum.data_ptr(),
-        psumsq.data_ptr(), end_sum.data_ptr(), end_sumsq.data_ptr(), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"detect_peaks: CUDA launch failed (cudaError {err})")
+        psumsq.data_ptr(), end_sum.data_ptr(), end_sumsq.data_ptr(), t1.data_ptr(),
+        t2.data_ptr(), _stream(dev),
+    ), "detect_peaks")
     detect_peaks.launches += 1
-    return Peaks(A, Q, peaks, counts, overflow, psum, psumsq, end_sum, end_sumsq)
+    return Peaks(A[:, :B], Q[:, :B], peaks[:B], counts[:B], overflow[:B], psum[:B], psumsq[:B],
+                 end_sum[:B], end_sumsq[:B])
 
 
 detect_peaks.launches = 0
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+def _want(name: str, nsamples: torch.Tensor, *specs) -> torch.device:
+    """The one device of a stage's tensors, checked as a CUDA stage reads
+    them through raw pointers: nsamples (B,) i32, and each (tensor, dtype)
+    of specs contiguous, of that dtype, B columns wide, on that device."""
+    dev = nsamples.device
+    B = nsamples.shape[0]
+    for t, dt in ((nsamples, torch.int32), *specs):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous() or t.shape[-1] != B:
+            raise ValueError(f"{name}: want contiguous {dt} tensors {B} wide on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def prefix_stage(sig_t, nsamples, raw_unit, offset):
+    """Stage a alone: (A, Q, end_sum, end_sumsq), the (S+1, B) f64 prefix
+    planes and their (B,) values at n."""
+    dev = _want("prefix_stage", nsamples, (sig_t, torch.int16), (raw_unit, torch.float32),
+                (offset, torch.float32))
+    S, B = sig_t.shape
+    if dev.type == "cpu":
+        A, Q = prefix_sums_plain(pa_plain(sig_t, raw_unit, offset), nsamples)
+        lanes, n = torch.arange(B), nsamples.long()
+        return A, Q, A[n, lanes], Q[n, lanes]
+    W = lane_width(B)
+    sig_t, nsamples, raw_unit, offset = (pad_lanes(t, W) for t in (sig_t, nsamples, raw_unit,
+                                                                   offset))
+    f64 = dict(dtype=torch.float64, device=dev)
+    A, Q = torch.empty((S + 1, W), **f64), torch.empty((S + 1, W), **f64)
+    end_sum, end_sumsq = torch.empty(W, **f64), torch.empty(W, **f64)
+    _check(_library().sf_events_prefix(
+        sig_t.data_ptr(), nsamples.data_ptr(), raw_unit.data_ptr(), offset.data_ptr(), S, W,
+        A.data_ptr(), Q.data_ptr(), end_sum.data_ptr(), end_sumsq.data_ptr(), _stream(dev),
+    ), "prefix_stage")
+    return A[:, :B], Q[:, :B], end_sum[:B], end_sumsq[:B]
+
+
+def tstat_stage(A, Q, nsamples, rna: bool):
+    """Stage b alone: the (S, B) f32 t-stat planes (t1, t2) at the
+    chemistry's two windows."""
+    dev = _want("tstat_stage", nsamples, (A, torch.float64), (Q, torch.float64))
+    params = RNA_PARAMS if rna else DNA_PARAMS
+    w1, w2 = params["window_length1"], params["window_length2"]
+    if dev.type == "cpu":
+        return tstat_plain(A, Q, nsamples, w1), tstat_plain(A, Q, nsamples, w2)
+    S, B = A.shape[0] - 1, A.shape[1]
+    t1, t2 = (torch.empty((S, B), dtype=torch.float32, device=dev) for _ in range(2))
+    _check(_library().sf_events_tstat(
+        A.data_ptr(), Q.data_ptr(), nsamples.data_ptr(), S, B, w1, w2, t1.data_ptr(),
+        t2.data_ptr(), _stream(dev),
+    ), "tstat_stage")
+    return t1, t2
+
+
+def detector_stage(t1, t2, nsamples, rna: bool, E: int):
+    """Stage c alone: (peaks (B, E) i32, counts (B,) i32, overflow (B,)
+    bool). The kernel writes a read's first counts slots; here the rest
+    are 0, as detector_plain's."""
+    dev = _want("detector_stage", nsamples, (t1, torch.float32), (t2, torch.float32))
+    params = RNA_PARAMS if rna else DNA_PARAMS
+    if dev.type == "cpu":
+        return detector_plain(t1, t2, nsamples, params, E)
+    S, B = t1.shape
+    W = lane_width(B)
+    t1, t2, nsamples = (pad_lanes(t, W) for t in (t1, t2, nsamples))
+    peaks = torch.zeros((W, E), dtype=torch.int32, device=dev)
+    counts = torch.empty(W, dtype=torch.int32, device=dev)
+    overflow = torch.empty(W, dtype=torch.bool, device=dev)
+    _check(_library().sf_events_detect(
+        t1.data_ptr(), t2.data_ptr(), nsamples.data_ptr(), S, W, E, params["window_length1"],
+        params["window_length2"], params["threshold1"], params["threshold2"],
+        params["peak_height"], peaks.data_ptr(), counts.data_ptr(), overflow.data_ptr(),
+        _stream(dev),
+    ), "detector_stage")
+    return peaks[:B], counts[:B], overflow[:B]
+
+
+def gather_stage(A, Q, peaks, counts, nsamples):
+    """Stage d alone: (psum, psumsq), A and Q at each read's first counts
+    peaks, 0 in the other slots. On the card it runs on a copy of peaks
+    (the kernel zeroes the slots past each count)."""
+    dev = _want("gather_stage", nsamples, (A, torch.float64), (Q, torch.float64),
+                (counts, torch.int32))
+    if peaks.dtype != torch.int32 or peaks.device != dev or tuple(peaks.shape)[0] != A.shape[1]:
+        raise ValueError(f"gather_stage: want int32 peaks ({A.shape[1]}, E) on {dev}")
+    if dev.type == "cpu":
+        return _gather(A, Q, peaks, nsamples)[:2]
+    B, E = peaks.shape
+    peaks = peaks.clone()
+    psum, psumsq = (torch.empty((B, E), dtype=torch.float64, device=dev) for _ in range(2))
+    _check(_library().sf_events_gather(
+        A.data_ptr(), Q.data_ptr(), counts.data_ptr(), B, E, peaks.data_ptr(), psum.data_ptr(),
+        psumsq.data_ptr(), _stream(dev),
+    ), "gather_stage")
+    return psum, psumsq
+
 
 _lib: ctypes.CDLL | None = None
 
@@ -337,10 +477,24 @@ def _library() -> ctypes.CDLL:
 
         lib = load_library("events")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sf_events.argtypes = [p, p, p, p, i, i, i, i, i, f, f, f] + [p] * 9 + [p]
-        lib.sf_events.restype = ctypes.c_int
+        lib.sf_events.argtypes = [p, p, p, p, i, i, i, i, i, f, f, f] + [p] * 11 + [p]
+        lib.sf_events_prefix.argtypes = [p, p, p, p, i, i, p, p, p, p, p]
+        lib.sf_events_tstat.argtypes = [p, p, p, i, i, i, i, p, p, p]
+        lib.sf_events_detect.argtypes = [p, p, p, i, i, i, i, i, f, f, f, p, p, p, p]
+        lib.sf_events_gather.argtypes = [p, p, p, i, i, p, p, p, p]
+        lib.sf_events_detector_smem.argtypes = []
+        for fn in (lib.sf_events, lib.sf_events_prefix, lib.sf_events_tstat,
+                   lib.sf_events_detect, lib.sf_events_gather, lib.sf_events_detector_smem):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def detector_smem_bytes() -> int:
+    """The dynamic shared memory a detector block takes (its two t-stat
+    rings and the tile records its three warps share), from the built
+    library."""
+    return int(_library().sf_events_detector_smem())
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:

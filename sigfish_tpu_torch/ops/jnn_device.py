@@ -29,7 +29,10 @@ polyA band in f64, so a read can in principle get another answer there;
 the tests print any such read.
 
 On a CPU tensor polya_end runs polya_end_plain; on a CUDA tensor it
-launches csrc/polya.cu or raises.
+launches csrc/polya.cu or raises. The kernel streams each warp's samples
+through shared-memory rings (ring_bytes() of dynamic shared memory a
+block) and walks a read four times: t is recomputed from the samples in
+each of P1, P2 and P3 rather than stored, and P4 and P5 share a walk.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .events_device import batch_tensors, sqrt_rn, to_host
+from .events_device import batch_tensors, lane_width, pad_lanes, sqrt_rn, to_host
 from .jnn import (
     JNNV1_R9_POLYA,
     JNNV1_RNA004_POLYA,
@@ -276,10 +279,14 @@ def polya_end(
     if sig_t.device.type != "cuda":
         raise ValueError(f"polya_end: unsupported device {sig_t.device}")
     v2, v1 = pore_params(pore)
-    sig_t = sig_t.contiguous()
-    out = torch.empty(B, dtype=torch.int32, device=sig_t.device)
+    # the kernel's rings copy 16-byte chunks of a row: lanes of 0 samples
+    # pad the batch to lane_width(B)
+    W = lane_width(B)
+    sig_t, nsamples, raw_unit, offset = (pad_lanes(t, W) for t in (sig_t, nsamples, raw_unit,
+                                                                   offset))
+    out = torch.empty(W, dtype=torch.int32, device=sig_t.device)
     err = _library().sf_polya(
-        sig_t.data_ptr(), nsamples.data_ptr(), raw_unit.data_ptr(), offset.data_ptr(), S, B,
+        sig_t.data_ptr(), nsamples.data_ptr(), raw_unit.data_ptr(), offset.data_ptr(), S, W,
         v2.window, v2.std_scale, v2.seg_dist, v2.hi_thresh, v2.lo_thresh,
         v1.corrector, v1.seg_dist, v1.window, v1.error, v1.window * v1.stall_len,
         out.data_ptr(), torch.cuda.current_stream(sig_t.device).cuda_stream,
@@ -287,7 +294,7 @@ def polya_end(
     if err != 0:
         raise RuntimeError(f"polya_end: CUDA launch failed (cudaError {err})")
     polya_end.launches += 1
-    return out
+    return out[:B]
 
 
 polya_end.launches = 0
@@ -305,8 +312,16 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sf_polya.argtypes = [p, p, p, p, i, i, i, f, i, i, i, i, i, i, i, f, p, p]
         lib.sf_polya.restype = ctypes.c_int
+        lib.sf_polya_ring_bytes.argtypes = []
+        lib.sf_polya_ring_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def ring_bytes() -> int:
+    """The dynamic shared memory a polya block takes (its two cursors'
+    double-buffered rings), from the built library."""
+    return int(_library().sf_polya_ring_bytes())
 
 
 def polya_end_batch(

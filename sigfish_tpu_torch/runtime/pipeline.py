@@ -363,11 +363,14 @@ class Core:
         # --host-stages device on the card: the eventizer and polyA kernels
         # run on this stream, so their results never wait behind the
         # previous batch's sDTW on the current stream; stage_wait is the
-        # host seconds spent waiting for their results
+        # host seconds spent waiting for their results, stage_sync the part
+        # of it spent waiting for the kernels themselves (the rest is
+        # assemble_events and the copies)
         self.host_stream = None
         if opt.host_stages == "device" and self.device.type == "cuda":
             self.host_stream = torch.cuda.Stream(self.device)
         self.stage_wait = 0.0
+        self.stage_sync = 0.0
         # reads whose events took the host path in device mode: the event
         # cap overflowed, or the signal alone passed _DEV_EVENT_CELL_CAP
         self.host_event_reads = 0
@@ -786,6 +789,9 @@ def _event_batch_device(core: Core, works: list[ReadWork]) -> None:
                 e1.record(stream)
                 core.spans["host_stages"].append((e0, e1))
             t0 = time.time()
+            if stream is not None:
+                e1.synchronize()
+                core.stage_sync += time.time() - t0
             tables, _ = assemble_events(res, ns)
             if pys is not None:
                 pys = to_host(pys)

@@ -11,8 +11,11 @@ and to the port's host mode.
 Inputs: chip_smoke.py's fuzz mix (stepwise, pure noise, near-flat, very
 short), a read whose events overflow the cap, a noiseless stepped read
 (subnormal variance quotients), reads shorter than 2 * w2, from a numpy
-seed; S stays at a few thousand samples, as the plain detector is a
-Python loop over steps.
+seed; and chip_smoke.edge_event_batch, the card kernel's ragged edges
+(reads of 0, 1, 2 samples, around 2 * w2 and the ring tiles, of S
+samples, S = 1,000 a multiple of neither tile, B = 37). S stays at a few
+thousand samples, as the plain detector is a Python loop over steps. The
+*_stage functions, on the CPU, are the plain stages one by one.
 """
 
 from __future__ import annotations
@@ -64,23 +67,35 @@ def _reads(rna: bool):
     return sigs
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["dna", "rna"])
+@pytest.fixture(scope="module", params=[(False, "fuzz"), (True, "fuzz"), (False, "edges"),
+                                        (True, "edges")],
+                ids=["dna", "rna", "dna-edges", "rna-edges"])
 def case(request):
-    """(rna, reads, numpy batch, the plain run's Peaks) for one parameter
-    set, computed once."""
-    rna = request.param
-    sigs = _reads(rna)
-    batch = _batch(sigs)
+    """(rna, reads, numpy batch, E, the plain run's Peaks, the noiseless
+    stepped read's row) for one parameter set, computed once."""
+    rna, kind = request.param
+    if kind == "fuzz":
+        sigs = _reads(rna)
+        batch = _batch(sigs)
+        stepped = len(sigs) - 3
+    else:
+        batch = load_smoke().edge_event_batch(3, rna)
+        sigs = [row[:n] for row, n in zip(batch[0], batch[1])]
+        stepped = 19
     E = ev.event_cap(batch[0].shape[1])
     res = ev.detect_peaks(*ev.batch_tensors(*batch, "cpu"), rna, E)
-    return rna, sigs, batch, E, res
+    return rna, sigs, batch, E, res, stepped
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a).view(np.uint8)
 
 
 def test_plain_stages_bitwise_vs_jax(case):
     """Peaks, counts, overflow and the gathered sums of the plain stages
     equal _detect_events_jit's on the CPU backend, bit for bit (x64 is
     scoped to the call and restored after it)."""
-    rna, _, (sig, ns, digi, off, rng_pa), E, res = case
+    rna, _, (sig, ns, digi, off, rng_pa), E, res, _ = case
     params = t_host.RNA_PARAMS if rna else t_host.DNA_PARAMS
     x64 = jax.config.jax_enable_x64
     with jax.enable_x64(True):
@@ -106,21 +121,21 @@ def test_plain_prefix_and_tstat_stages_vs_host(case):
     compute_prefix_sums and compute_tstat bit for bit, and the noiseless
     stepped read reaches the subnormal quotient: huge t-stats, none
     infinite."""
-    rna, sigs, (sig, ns, digi, off, rng_pa), _, res = case
+    rna, sigs, (sig, ns, digi, off, rng_pa), _, res, stepped_row = case
     params = t_host.RNA_PARAMS if rna else t_host.DNA_PARAMS
     args = ev.batch_tensors(sig, ns, digi, off, rng_pa, "cpu")
     ts = [ev.tstat_plain(res.A, res.Q, args[1], params[k])
           for k in ("window_length1", "window_length2")]
     unit = np.float32(RANGE) / np.float32(DIGI)
     for b, s in enumerate(sigs):
-        pa = (s.astype(np.float32) + np.float32(OFF)) * unit
+        pa = (s.astype(np.float32) + np.float32(off[b])) * unit
         sums, sumsqs = t_host.compute_prefix_sums(pa)
         assert np.array_equal(res.A[: s.size + 1, b].numpy(), sums), b
         assert np.array_equal(res.Q[: s.size + 1, b].numpy(), sumsqs), b
         for t, k in zip(ts, ("window_length1", "window_length2")):
             want = t_host.compute_tstat(sums, sumsqs, s.size, params[k])
             assert np.array_equal(t[: s.size, b].numpy(), want), (b, k)
-    stepped = ts[0][:, len(sigs) - 3]
+    stepped = ts[0][:, stepped_row]
     assert torch.isfinite(stepped).all() and float(stepped.max()) > 1e15
 
 
@@ -128,7 +143,7 @@ def test_event_tables_bitwise_vs_host(case):
     """detect_events_batch(device="cpu") against the host detect_events,
     read by read: start, length, mean and stdv bit for bit; an overflowing
     read gets None and its flag."""
-    rna, sigs, batch, _, _ = case
+    rna, sigs, batch, _, _, _ = case
     tables, overflow = ev.detect_events_batch(*batch, rna, device="cpu")
     unit = np.float32(RANGE) / np.float32(DIGI)
     n_over = 0
@@ -137,12 +152,99 @@ def test_event_tables_bitwise_vs_host(case):
             assert tables[b] is None
             n_over += 1
             continue
-        ref = t_host.detect_events((s.astype(np.float32) + np.float32(OFF)) * unit, rna=rna)
+        ref = t_host.detect_events((s.astype(np.float32) + np.float32(batch[3][b])) * unit, rna=rna)
         et = tables[b]
         assert et.n == ref.n, f"read {b}: {et.n} vs {ref.n} events"
+        # bits, not values: an empty read's one event has mean 0 / 0
         for f in ("start", "length", "mean", "stdv"):
-            assert np.array_equal(getattr(et, f), getattr(ref, f)), (b, f)
+            assert np.array_equal(_bits(getattr(et, f)), _bits(getattr(ref, f))), (b, f)
     assert n_over == (0 if rna else 1)
+
+
+def test_stage_functions_compose_to_detect_peaks(case):
+    """On the CPU the four *_stage functions, each fed the one before,
+    give detect_peaks' Peaks bit for bit; the t-stat planes are the
+    plain tstat_plain's."""
+    rna, _, batch, E, res, _ = case
+    args = ev.batch_tensors(*batch, "cpu")
+    A, Q, end_sum, end_sumsq = ev.prefix_stage(*args)
+    t1, t2 = ev.tstat_stage(A, Q, args[1], rna)
+    peaks, counts, overflow = ev.detector_stage(t1, t2, args[1], rna, E)
+    psum, psumsq = ev.gather_stage(A, Q, peaks, counts, args[1])
+    got = ev.Peaks(A, Q, peaks, counts, overflow, psum, psumsq, end_sum, end_sumsq)
+    for name, g, w in zip(ev.Peaks._fields, got, res):
+        assert g.dtype == w.dtype and torch.equal(g.view(torch.uint8), w.view(torch.uint8)), name
+    params = t_host.RNA_PARAMS if rna else t_host.DNA_PARAMS
+    assert torch.equal(t2, ev.tstat_plain(A, Q, args[1], params["window_length2"]))
+
+
+def test_stage_tstat_planes_bitwise_vs_jax(case):
+    """tstat_stage's two planes equal sigfish_tpu's _tstat on the CPU
+    backend (its window a traced f32), bit for bit, over every (i, b),
+    padding rows included."""
+    rna, _, batch, _, res, _ = case
+    params = t_host.RNA_PARAMS if rna else t_host.DNA_PARAMS
+    ns = torch.from_numpy(batch[1])
+    got = ev.tstat_stage(res.A, res.Q, ns, rna)
+    with jax.enable_x64(True):
+        for g, k in zip(got, ("window_length1", "window_length2")):
+            w = params[k]
+            want = jax.jit(lambda A, Q, n, wf, w=w: j_ev._tstat(A, Q, n, w, wf))(
+                jnp.asarray(res.A.numpy()), jnp.asarray(res.Q.numpy()), jnp.asarray(batch[1]),
+                jnp.float32(w))
+            assert np.array_equal(g.numpy().view(np.uint32), np.asarray(want).view(np.uint32)), k
+
+
+
+@pytest.mark.parametrize("B", [0, 1, 7, 8, 9, 37, 40])
+def test_lane_width_whole_chunks(B):
+    """The card kernels run lane_width(B) reads wide: the least multiple
+    of 8 (an i16 row of whole 16-byte chunks) not below B."""
+    W = ev.lane_width(B)
+    assert W % ev.LANE_ALIGN == 0 and B <= W < B + ev.LANE_ALIGN
+
+
+@pytest.mark.parametrize("layout", ["as-is", "narrow", "strided", "unaligned"])
+def test_pad_lanes(layout):
+    """pad_lanes gives a contiguous, 16-byte-aligned (..., W) tensor with
+    t's values and zero lanes past them; a tensor that is one already
+    comes back as itself."""
+    W = 40
+    base = torch.arange(1, 3 * W + 2, dtype=torch.int16)
+    t = {"as-is": base[: 3 * W].view(3, W), "narrow": base[: 3 * 37].view(3, 37),
+         "strided": base[: 3 * W].view(W, 3).t(),
+         "unaligned": base[1:].view(3, W)}[layout]
+    assert (t.data_ptr() % 16 != 0) == (layout == "unaligned")
+    p = ev.pad_lanes(t, W)
+    B = t.shape[-1]
+    assert tuple(p.shape) == (3, W) and p.is_contiguous() and p.data_ptr() % 16 == 0
+    assert torch.equal(p[:, :B], t) and not p[:, B:].any()
+    assert (p is t) == (layout == "as-is")
+
+
+@pytest.mark.parametrize("stage", ["prefix", "tstat", "detector", "gather"])
+@pytest.mark.parametrize("fault", ["strided", "dtype", "width"])
+def test_stage_functions_refuse_bad_tensors(stage, fault):
+    """A stage reads its tensors through raw pointers on the card, so on
+    every device it refuses a non-contiguous tensor, a wrong dtype and a
+    tensor of another batch width than nsamples."""
+    ns = torch.full((8,), 10, dtype=torch.int32)
+    good = {
+        "prefix": [torch.zeros((64, 8), dtype=torch.int16), ns, torch.ones(8), torch.ones(8)],
+        "tstat": [torch.zeros((65, 8), dtype=torch.float64)] * 2 + [ns, False],
+        "detector": [torch.zeros((64, 8))] * 2 + [ns, False, 16],
+        "gather": [torch.zeros((65, 8), dtype=torch.float64)] * 2
+        + [torch.zeros((8, 16), dtype=torch.int32), ns, ns],
+    }[stage]
+    bad = list(good)
+    first = bad[0]
+    bad[0] = {"strided": first.t().contiguous().t(), "dtype": first.to(torch.float16),
+              "width": first[..., :4].contiguous()}[fault]
+    fn = {"prefix": ev.prefix_stage, "tstat": ev.tstat_stage, "detector": ev.detector_stage,
+          "gather": ev.gather_stage}[stage]
+    fn(*good)
+    with pytest.raises(ValueError, match="want contiguous"):
+        fn(*bad)
 
 
 def test_event_batch_device_long_read_chunk_sizing(monkeypatch):

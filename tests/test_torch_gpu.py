@@ -272,6 +272,94 @@ def test_events_kernel_bitwise_vs_plain(cuda_device, rna):
     assert bool(got.overflow.any()) == (not rna)
 
 
+def _event_batch(smoke, kind, rna):
+    """fuzz: the 64-read fuzz batch at S=4,096; edges: the ragged batch
+    (B=37, which the wrappers pad to 40 lanes); edges32: its first 32 rows
+    (one warp, no padding)."""
+    if kind == "fuzz":
+        return smoke.host_stage_batch(5 + rna, rna, S=4096)
+    b = smoke.edge_event_batch(3, rna)
+    return tuple(a[:32] for a in b) if kind == "edges32" else b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fuzz", "edges", "edges32"])
+@pytest.mark.parametrize("rna", [False, True])
+def test_events_stages_bitwise_vs_plain(cuda_device, rna, kind):
+    """Each stage of csrc/events.cu alone, on the same card tensors as its
+    plain stage: the prefix planes and A, Q at n against prefix_sums_plain,
+    t1 and t2 against tstat_plain, peaks, counts and overflow against
+    detector_plain, the gathered sums against _gather; then the whole
+    call, counted once, against all of them."""
+    from sigfish_tpu_torch.ops import events_device as ev
+
+    args = ev.batch_tensors(*_event_batch(_load_smoke(), kind, rna), cuda_device)
+    sig, ns, ru, of = args
+    E = ev.event_cap(sig.shape[0])
+    prm = ev.RNA_PARAMS if rna else ev.DNA_PARAMS
+    A, Q = ev.prefix_sums_plain(ev.pa_plain(sig, ru, of), ns)
+    t1 = ev.tstat_plain(A, Q, ns, prm["window_length1"])
+    t2 = ev.tstat_plain(A, Q, ns, prm["window_length2"])
+    pk, cn, ov = ev.detector_plain(t1, t2, ns, prm, E)
+    ps, pq, es, eq = ev._gather(A, Q, pk, ns)
+    stages = [
+        (ev.prefix_stage(*args), (A, Q, es, eq)),
+        (ev.tstat_stage(A, Q, ns, rna), (t1, t2)),
+        (ev.detector_stage(t1, t2, ns, rna, E), (pk, cn, ov)),
+        (ev.gather_stage(A, Q, pk, cn, ns), (ps, pq)),
+    ]
+    for i, (got, want) in enumerate(stages):
+        for j, (g, w) in enumerate(zip(got, want)):
+            assert _same_bytes(g, w), (i, j)
+    before = ev.detect_peaks.launches
+    got = ev.detect_peaks(*args, rna, E)
+    torch.cuda.synchronize()
+    assert ev.detect_peaks.launches == before + 1
+    for name, g, w in zip(ev.Peaks._fields, got, (A, Q, pk, cn, ov, ps, pq, es, eq)):
+        assert _same_bytes(g, w), name
+    assert bool(ov.any()) == (not rna)
+
+
+@pytest.mark.gpu
+def test_events_kernel_empty_signal(cuda_device):
+    """A batch of S = 0 samples (B = 12, padded to 16 lanes): every
+    count, overflow flag, peak slot and sum is written, 0, and A and Q
+    are their one row of zeros. The plain version needs S > 2 * w2."""
+    from sigfish_tpu_torch.ops import events_device as ev
+
+    B = 12
+    got = ev.detect_peaks(torch.zeros((0, B), dtype=torch.int16, device=cuda_device),
+                          torch.zeros(B, dtype=torch.int32, device=cuda_device),
+                          torch.ones(B, device=cuda_device), torch.zeros(B, device=cuda_device),
+                          False, ev.event_cap(0))
+    torch.cuda.synchronize()
+    shapes = dict(A=(1, B), Q=(1, B), peaks=(B, 64), counts=(B,), overflow=(B,), psum=(B, 64),
+                  psumsq=(B, 64), end_sum=(B,), end_sumsq=(B,))
+    for name, g in zip(ev.Peaks._fields, got):
+        assert tuple(g.shape) == shapes[name] and not g.any(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [37, 32])
+@pytest.mark.parametrize("pore", [0, 2])
+def test_polya_kernel_edges_bitwise_vs_plain(cuda_device, pore, rows):
+    """csrc/polya.cu against polya_end_plain on the ragged polyA batch:
+    reads no longer than the window, without adaptor, with the shortest
+    tails, of S = 8,292 samples; B=37 (padded to 40 lanes) and its first
+    32 rows; counted once a call."""
+    from sigfish_tpu_torch.ops import events_device as ev
+    from sigfish_tpu_torch.ops import jnn_device as jd
+
+    b = tuple(a[:rows] for a in _load_smoke().edge_polya_batch(4))
+    args = ev.batch_tensors(*b, cuda_device)
+    before = jd.polya_end.launches
+    got = jd.polya_end(*args, pore)
+    torch.cuda.synchronize()
+    assert jd.polya_end.launches == before + 1
+    assert torch.equal(got.cpu(), jd.polya_end_plain(*args, pore).cpu())
+    assert bool((got[:7] < 0).all()) and int((got >= 0).sum()) >= 10
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("pore", [0, 2])
 def test_polya_kernel_bitwise_vs_plain(cuda_device, pore):

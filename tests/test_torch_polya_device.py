@@ -11,9 +11,13 @@ Reads: chip_smoke.py's direct-RNA generator with shorter adaptors and
 walks (at most ~20k samples, as the plain passes are Python loops over
 samples), and the degraded reads of sigfish_tpu's device polyA test: pure
 noise (the adaptor scan fails), a signal no longer than the rolling
-window, a short polyA, and an empty signal. A read whose answer differs
-from the host scan (ops/jnn.detect_polya_end, which carries the band in
-f64) is printed with both answers.
+window, a short polyA, and an empty signal; and chip_smoke.edge_polya_
+batch, the card kernel's ragged edges (reads of 0, 1 and window - 1 to
+window + 1 samples, no adaptor, the shortest tails after the polyA, a
+read of S samples, S = 8,292 not a multiple of the ring's 256-step tile,
+B = 37). A read whose answer differs from the host scan (ops/jnn.
+detect_polya_end, which carries the band in f64) is printed with both
+answers.
 """
 
 from __future__ import annotations
@@ -55,11 +59,17 @@ def _degraded(rng):
     ]
 
 
-@pytest.fixture(scope="module", params=[jnn.PORE_R9, jnn.PORE_RNA004], ids=["r9", "rna004"])
+@pytest.fixture(scope="module", params=[(jnn.PORE_R9, "fuzz"), (jnn.PORE_RNA004, "fuzz"),
+                                        (jnn.PORE_R9, "edges"), (jnn.PORE_RNA004, "edges")],
+                ids=["r9", "rna004", "r9-edges", "rna004-edges"])
 def polya_case(request, tmp_path_factory):
     """(pore, read ids, signals, numpy batch) of chip_smoke's RNA reads
-    for the chemistry plus the degraded reads."""
-    pore = request.param
+    for the chemistry plus the degraded reads, or of its edge batch."""
+    pore, kind = request.param
+    if kind == "edges":
+        batch = load_smoke().edge_polya_batch(4)
+        sigs = [row[:n] for row, n in zip(batch[0], batch[1])]
+        return pore, [f"edge{i}" for i in range(len(sigs))], sigs, batch
     d = tmp_path_factory.mktemp("polya")
     _, bl, _ = load_smoke().make_rna_workload(str(d), 4, 16, 21, rna004=pore == jnn.PORE_RNA004,
                                               **SMALL)
@@ -88,12 +98,30 @@ def test_plain_polya_bitwise_vs_jax(polya_case):
     want = j_pa.polya_end_batch(*batch, pore=pore)
     assert got.tolist() == want.tolist()
     unit = np.float32(RANGE) / np.float32(DIGI)
-    for rid, s, g in zip(ids, sigs, got):
+    for rid, s, g, off in zip(ids, sigs, got, batch[3]):
         host = -1 if s.size == 0 else jnn.detect_polya_end(
-            s, (s.astype(np.float32) + np.float32(OFF)) * unit, pore=pore)
+            s, (s.astype(np.float32) + np.float32(off)) * unit, pore=pore)
         if host != g:
             print(f"polyA end of {rid}: device {g}, host scan {host}")
-    assert (got >= 0).sum() >= 12 and (got[-6:] < 0).sum() >= 3
+    if ids[0] == "edge0":  # no longer than the window + 1, or no adaptor: -1
+        assert (got >= 0).sum() >= 12 and (got[:7] < 0).all()
+    else:
+        assert (got >= 0).sum() >= 12 and (got[-6:] < 0).sum() >= 3
+
+
+def test_plain_polya_rows_independent(polya_case):
+    """A read's answer does not hang on its batch: the batch's two halves,
+    each alone (a shorter plane), give the whole batch's answers. The card
+    kernel walks the union of a warp's rows, so its lanes must not
+    interact either."""
+    pore, _, _, batch = polya_case
+    got = pa.polya_end_batch(*batch, pore, device="cpu")
+    h = batch[0].shape[0] // 2
+    for rows in (slice(0, h), slice(h, None)):
+        part = tuple(a[rows] for a in batch)
+        n_max = int(part[1].max())
+        part = (part[0][:, : max(n_max, 1)],) + part[1:]
+        assert pa.polya_end_batch(*part, pore, device="cpu").tolist() == got[rows].tolist()
 
 
 def _exact_f32(x: Fraction) -> np.float32:

@@ -86,3 +86,23 @@ def test_phase8_chemistries_are_detected(smoke, tmp_path, chem):
     else:
         assert not any(w.flag_prefix_fail for i, w in enumerate(works) if i % 20 != 4)
         assert sum(w.flag_too_short for w in works) >= 2
+
+
+def test_ptxas_table_reads_each_entry(smoke):
+    """Phase 9's ptxas report: each kernel entry of an nvcc -Xptxas -v
+    log by its kernel's name, with its registers, static shared memory
+    and spill bytes (0 where the log gives none)."""
+    report = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__fb09b1dd_9_events_cu_45365bfd"
+        "13prefix_kernelEPKsPKiPKfS5_iiPdS6_S6_S6_' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 58 registers, used 1 barriers, 32768 bytes smem, 424 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__53e5aa53_8_polya_cu_sf_polya"
+        "12polya_kernelEPKsPKiPKfS5_iifiiiiiiifPi' for 'sm_90a'",
+        "    8 bytes stack frame, 12 bytes spill stores, 28 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 436 bytes cmem[0]",
+    ])
+    assert smoke.ptxas_table(report) == [
+        dict(entry="prefix_kernel", registers=58, smem=32768, spill_stores=0, spill_loads=0),
+        dict(entry="polya_kernel", registers=40, smem=0, spill_stores=12, spill_loads=28),
+    ]
