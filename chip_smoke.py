@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one Hopper GPU
 (compute capability 9.0), nvcc and g++. It builds the port's kernels from
-the checkout's sources, then runs nine phases, and fails (exit code 1,
+the checkout's sources, then runs ten phases, and fails (exit code 1,
 no result line) if any of them fails:
 
   1. device   CUDA present with capability (9, 0); prints the card's
@@ -179,6 +179,25 @@ no result line) if any of them fails:
               6: the overlap with the chunked sDTW); and phase 7's
               --profile-cpu stage split in device mode, with the same
               wait split.
+  10. mesh    --mesh over the card listed once per shard (mesh_devices
+              ["cuda:0"] * DP*TP, a stream per shard): tracks mode over
+              phase 4's workload at 2x1 and phase 7's at 2x2 (host
+              stages on the host and on the card), and ring mode over
+              phase 6's E. coli reference (2 tracks, fewer than TP) at
+              1x4 for its first 512 reads, clipped ones among them; each
+              whole PAF byte-identical to that phase's single-device
+              PAF. Fails unless the one-shot launches are batches x DP x
+              TP in tracks mode, the ring's carry launches batches x 32
+              microbatches x 4 x ring_n_sub (> 1, the auto rule) with the
+              clipped sub-batch on the chunked route, Core.routes shows
+              the mode and no plain sweep ran; prints reads/s, each
+              run's peak memory, the mesh route's device seconds
+              (--profile-cpu) and ms per shard launch. Each timed shard
+              launch is held bit for bit to the plain version on the
+              same inputs: a one-shot shard of each tracks run (shard
+              0's tracks, one row in ten from its start lane), and a
+              ring hop at B=16 (shard 0's last sub-chunk from a fresh
+              state, then shard 1's first from the state handed on).
 
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -222,6 +241,12 @@ N7_READS = 1_536
 TX_LEN = (600, 7_000)   # transcript lengths: both sides of gen_ref's min(750, L-4)
 SUBSET7 = 64            # reads checked byte for byte against the CPU path
 CUT3_DIAGS = 24_576     # phase 3's Q=512 checks: the RNA reference's first diagonals
+
+# phase 10: --mesh over the card listed once per shard (a stream each)
+MESH_DNA = "2x1"        # tracks mode over phase 4's workload
+MESH_RNA = "2x2"        # tracks mode over phase 7's 160 tracks
+MESH_RING = "1x4"       # ring mode over phase 6's E. coli: 2 tracks < TP
+N10_READS = 512         # the ring's one batch: phase 6's first reads, clipped ones among them
 
 # workload of phase 8: the rest of the dtw surface
 N8_READS = 1_536        # R10 DNA reads over a phase-4-size reference
@@ -2007,6 +2032,193 @@ def main() -> None:
         if ppaf9 != paf7:
             fail("phase 7's --profile-cpu run with --host-stages device differs from host mode")
 
+        # ----------------------------------------------------------- 10
+        phase("10 mesh")
+
+        def mesh_run(label, fa_, bl_, want, mesh, mode, state_, profile=False, **kw):
+            """run_dtw over a --mesh grid of the card listed DP*TP times (a
+            stream per shard), its whole PAF against the single-device PAF
+            `want` of this call; the launch counts checked against the
+            layout, no plain sweep, reads/s, peak memory and, with
+            --profile-cpu, the mesh route's device seconds (CUDA events)."""
+            n_dp, n_tp = (int(x) for x in mesh.split("x"))
+            reset_counts()
+            apm.alu_peak.launches = 0
+            plain0 = wfm.wavefront_plain.calls
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # what earlier phases still hold
+            out, c, dt_ = run_port(fa_, bl_, "cuda", state=state_, profile=profile, mesh=mesh,
+                                   mesh_devices=["cuda:0"] * (n_dp * n_tp), **kw)
+            peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+            route = "mesh_tracks" if mode == "tracks" else "ring"
+            # the ring's clipped sub-batch: one chunked chain a batch, a
+            # carry launch a segment of the single-device layout
+            segs = [v[0].shape[0] for v in c._wf_chunk_cache.values()]
+            clip = c.routes["chunked"] * (segs[0] if len(segs) == 1 else 0)
+            n = dict(oneshot=wfm.sdtw_wavefront.launches, carry=wfm.sdtw_wavefront_carry.launches,
+                     ring=wfm.sdtw_wavefront_carry.launches - clip, clip=clip,
+                     alu_peak=apm.alu_peak.launches, plain=wfm.wavefront_plain.calls - plain0)
+            dev_s = c.span_seconds(route) if profile else None
+            dev_txt = f"{dev_s:.3f} s" if profile else "not measured (overlapped run)"
+            ok = out == want
+            print(f"{label}, --mesh {mesh} ({c.mesh_mode} mode{', --profile-cpu' if profile else ''}) "
+                  f"on {n_dp * n_tp} x cuda:0: {c.total_reads} reads, {dt_:.3f} s, "
+                  f"{c.total_reads / dt_:.1f} reads/s end to end; {route} device time {dev_txt}; "
+                  f"peak device memory {peak:.3f} GB above the {held / 1e9:.3f} GB held before; "
+                  f"one-shot launches {n['oneshot']}, carry launches {n['carry']} (the ring's "
+                  f"{n['ring']}), ALU probe launches {n['alu_peak']}, plain sweeps {n['plain']}; "
+                  f"routes {c.routes}; whole PAF byte_identical to the single-device run={ok}; "
+                  f"card: {smi}")
+            if not ok:
+                fail(f"{label}: the --mesh {mesh} PAF differs from the single-device PAF")
+            if c.mesh_mode != mode or c.routes[route] <= 0:
+                fail(f"{label}: --mesh {mesh} ran in {c.mesh_mode} mode, routes {c.routes}; want {mode}")
+            if n["plain"]:
+                fail(f"{label}: {n['plain']} plain sweeps ran during the card run")
+            if mode == "tracks" and (n["oneshot"] != c.routes[route] * n_dp * n_tp or n["carry"]):
+                fail(f"{label}: {n['oneshot']} one-shot launches over {c.routes[route]} batches; want "
+                     f"batches x DP x TP and no carry launch")
+            return out, c, dt_, n, peak, dev_s
+
+        def clip_batch(seed, B, Q, W_):
+            """B reads of Q samples, one in ten clipped as phase 6's batches
+            have them (qlen 150 .. W-1), shifted for the clip: (queries,
+            start lanes) on the card."""
+            rng10 = np.random.default_rng(seed)
+            ql = np.full(B, W_, np.int32)
+            ql[9::10] = rng10.integers(150, W_, size=ql[9::10].size)
+            qb_, ql, _ = layout.make_query_batch(
+                [rng10.standard_normal(int(x)).astype(np.float32) for x in ql], pad_q=Q)
+            qb_, sl_ = layout.shift_queries_for_clip(qb_, ql, W_ - 1)
+            return torch.from_numpy(qb_).to(dev), torch.from_numpy(sl_).to(dev)
+
+        def hold_plain(label, got, want, masks=()):
+            """A timed launch's output against the plain version's on the
+            same inputs, bit for bit (a carry's state under its mask):
+            fails on a difference, returns the largest error."""
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            ok, err = bits_equal(got[0], want[0]), abs_err(got[0], want[0])
+            for a, b, m in zip(got[1:], want[1:], masks):
+                ok = ok and bits_equal(a[m], b[m])
+                err = max(err, abs_err(a[m], b[m]))
+            print(f"{label}: bitwise_equal to its plain version={ok}, max_abs_err={err}")
+            if not ok:
+                fail(f"{label} differs from its plain version")
+            return err
+
+        def shard_oneshot(label, core, Q, W_, seed):
+            """One shard's one-shot launch at its run's shape (B / DP rows,
+            clipped ones from their start lanes, over shard 0's padded
+            tracks) timed, and held to the plain version: (ms, error)."""
+            yp_, rp_ = core._mesh_bufs[0][0][:2]
+            q_, sl_ = clip_batch(seed, BATCH // 2, Q, W_)
+            ms_, got = median_ms_out(lambda: wfm.sdtw_wavefront(q_, yp_, rp_, W_ - 1,
+                                                                start_lanes=sl_), 3)
+            want = wfm.wavefront_plain(q_, yp_, rp_, W_ - 1, sl_)
+            err = hold_plain(f"one shard's one-shot launch at {label}: ({BATCH // 2}, {Q}) "
+                             f"over D={yp_.shape[1]}", got, want)
+            print(f"  {ms_:.3f} ms (Rs={core.shard_Rs}, {int((sl_ > 0).sum())} rows from start "
+                  f"lanes); card: {smi}")
+            return ms_, err
+
+        # tracks mode, DNA: phase 4's workload (2 tracks) under 2x1
+        _, c10d, dt10d, n10d, peak10d, _ = mesh_run("phase 4", fa, bl, paf, MESH_DNA, "tracks", state)
+        _, _, _, _, _, dev10d = mesh_run("phase 4", fa, bl, paf, MESH_DNA, "tracks", state,
+                                         profile=True)
+        b10d = c10d.routes["mesh_tracks"]
+        if b10d != -(-N_READS // BATCH):
+            fail(f"phase 4 --mesh {MESH_DNA}: {b10d} tracks batches; want {-(-N_READS // BATCH)}")
+        ms10d, err10d = shard_oneshot(f"--mesh {MESH_DNA}", c10d, pad_q, W, SEED + 10)
+
+        # tracks mode, RNA at full width: phase 7's workload under 2x2, with
+        # the host stages on the host and on the card
+        _, c10r, dt10r, n10r, peak10r, _ = mesh_run("phase 7", fa7, bl7, paf7, MESH_RNA, "tracks",
+                                                    state7, **RNA_OPT)
+        _, _, _, _, _, dev10r = mesh_run("phase 7", fa7, bl7, paf7, MESH_RNA, "tracks", state7,
+                                         profile=True, **RNA_OPT)
+        evm.detect_peaks.launches = 0
+        jdm.polya_end.launches = 0
+        _, c10h, dt10h, n10h, peak10h, _ = mesh_run("phase 7 --host-stages device", fa7, bl7, paf7,
+                                                    MESH_RNA, "tracks", state7,
+                                                    host_stages="device", **RNA_OPT)
+        ev10, pa10 = evm.detect_peaks.launches, jdm.polya_end.launches
+        if ev10 <= 0 or pa10 <= 0:
+            fail("the --mesh run with --host-stages device launched no events or polya_end kernel")
+        _, _, _, _, _, dev10h = mesh_run("phase 7 --host-stages device", fa7, bl7, paf7, MESH_RNA,
+                                         "tracks", state7, profile=True, host_stages="device",
+                                         **RNA_OPT)
+        ms10r, err10r = shard_oneshot(f"--mesh {MESH_RNA}", c10r, pad_q7, W7, SEED + 11)
+        print(f"events launches {ev10}, polya_end launches {pa10} in the --mesh {MESH_RNA} "
+              f"device-stages run; card: {smi}")
+
+        # ring mode at full width: phase 6's E. coli (2 tracks < TP) over
+        # its first N10_READS reads, one batch, clipped reads among them
+        keep10 = [f"read{i:05d}" for i in range(N10_READS)]
+        sub10 = os.path.join(work6, "ring.blow5")
+        subset_blow5(bl6, sub10, set(keep10))
+        want10 = "".join(by_id6[r] + "\n" for r in keep10 if r in by_id6)
+        n_clip10 = sum(1 for i in range(N10_READS) if i % 10 == 9)
+        _, c10g, dt10g, n10g, peak10g, dev10g = mesh_run(
+            f"phase 6's first {N10_READS} reads ({n_clip10} clipped)", fa6, sub10, want10,
+            MESH_RING, "ring", state6, profile=True)
+        n_tp10 = int(MESH_RING.split("x")[0]) * int(MESH_RING.split("x")[1])
+        b10g = c10g.routes["ring"]
+        n_micro10 = 32
+        want_ring = b10g * n_micro10 * n_tp10 * c10g.ring_n_sub
+        print(f"ring layout: Rs={c10g.shard_Rs} columns a shard, ring_n_sub={c10g.ring_n_sub} "
+              f"sub-chunks of {c10g.shard_Rs // c10g.ring_n_sub} diagonals (auto rule), "
+              f"{n_micro10} microbatches; carry launches {n10g['carry']}: the clipped "
+              f"sub-batch's chain {n10g['clip']} ({c10g.routes['chunked']} chunked chains x "
+              f"their segments), the ring's {n10g['ring']} (want {b10g} x {n_micro10} x "
+              f"{n_tp10} x {c10g.ring_n_sub} = {want_ring}); card: {smi}")
+        if b10g != 1 or c10g.ring_n_sub <= 1 or n10g["ring"] != want_ring:
+            fail(f"the ring run's carry launches {n10g['ring']} do not match its layout "
+                 f"({b10g} batches, ring_n_sub {c10g.ring_n_sub})")
+        if n10g["oneshot"] or c10g.routes["chunked"] != b10g or n10g["clip"] <= 0:
+            fail(f"the ring run's clipped reads did not take one chunked sub-batch a batch "
+                 f"({n10g}, routes {c10g.routes})")
+        # a ring hop: shard 0's last sub-chunk from a fresh state, then
+        # shard 1's first from the state it hands on (the timed launch),
+        # a microbatch's rows with its start lanes; both against a plain
+        # chain over the same columns
+        (yps0, rps0), (yps1, rps1) = (b[:2] for b in c10g._mesh_bufs[0][:2])
+        Bm10 = N10_READS // n_micro10
+        q10g, sl10g = clip_batch(SEED + 12, Bm10, pad_q, W)
+        fresh10 = wfm.carry_fresh_state(Bm10, pad_q, dev)
+        masks10 = wfm.carry_state_mask(sl10g, Bm10, pad_q, dev)
+        hop0 = wfm.sdtw_wavefront_carry(q10g, yps0[-1], rps0[-1], *fresh10, W - 1,
+                                        start_lanes=sl10g)
+        ms10g, hop1 = median_ms_out(lambda: wfm.sdtw_wavefront_carry(
+            q10g, yps1[0], rps1[0], *hop0[1:], W - 1, start_lanes=sl10g), 3)
+        want0 = wfm.wavefront_plain(q10g, yps0[-1], rps0[-1], W - 1, sl10g, False, *fresh10)
+        want1 = wfm.wavefront_plain(q10g, yps1[0], rps1[0], W - 1, sl10g, False, *want0[1:])
+        err10g = max(
+            hold_plain(f"ring carry launch, shard 0's last sub-chunk from a fresh state: "
+                       f"({Bm10}, {pad_q}) over {yps0.shape[2]} diagonals", hop0, want0, masks10),
+            hold_plain(f"ring carry launch, shard 1's first sub-chunk from the state handed on: "
+                       f"({Bm10}, {pad_q}) over {yps1.shape[2]} diagonals", hop1, want1, masks10))
+        print(f"  {ms10g:.3f} ms ({int((sl10g > 0).sum())} rows from start lanes); x {want_ring} "
+              f"launches = {ms10g * want_ring / 1e3:.3f} s serial beside the ring's {dev10g:.3f} s "
+              f"of device time (shard streams overlapping); card: {smi}")
+        mesh10 = {
+            f"tracks_dna_{MESH_DNA}": dict(reads_s=c10d.total_reads / dt10d, device_s=dev10d,
+                                           peak_gb=peak10d, oneshot=n10d["oneshot"],
+                                           ms_shard_launch=ms10d, max_abs_err=err10d),
+            f"tracks_rna_{MESH_RNA}": dict(reads_s=c10r.total_reads / dt10r, device_s=dev10r,
+                                           peak_gb=peak10r, oneshot=n10r["oneshot"],
+                                           ms_shard_launch=ms10r, max_abs_err=err10r),
+            f"tracks_rna_device_stages_{MESH_RNA}": dict(
+                reads_s=c10h.total_reads / dt10h, device_s=dev10h, peak_gb=peak10h,
+                oneshot=n10h["oneshot"], events=ev10, polya_end=pa10, ms_shard_launch=ms10r,
+                max_abs_err=err10r),
+            f"ring_{MESH_RING}": dict(reads_s=c10g.total_reads / dt10g, device_s=dev10g,
+                                      peak_gb=peak10g, carry_ring=n10g["ring"],
+                                      carry_clip=n10g["clip"], ring_n_sub=c10g.ring_n_sub,
+                                      ms_shard_launch=ms10g, max_abs_err=err10g),
+        }
+        print("mesh: " + json.dumps(mesh10) + f"; card: {smi}")
+
         # the carry entry times the instance phase 6 launched (every launch
         # with start lanes, checked above); the start lanes add B i32 reads
         c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes + 4 * BATCH, issue)
@@ -2026,6 +2238,7 @@ def main() -> None:
                 "warps": {str(BATCH): wfm.wavefront_warps(BATCH, pad_q), "16": w16},
                 "ms_b16": ms16,
                 "launches_rna": launches7,
+                "launches_mesh": n10d["oneshot"] + n10r["oneshot"] + n10h["oneshot"],
                 "ms_q512": ms7,
                 "plain_ms_q512": plain_ms7,
                 "bound_ms_q512": bound7_ms,
@@ -2047,6 +2260,7 @@ def main() -> None:
                 "source": "sigfish_tpu_torch/csrc/wavefront.cu",
                 "replaces": "sigfish_tpu/ops/sdtw_pallas.py:211",
                 "launches": carry_launches,
+                "launches_mesh": n10g["carry"],
                 "max_abs_err": carry_err,
                 "ms": c_ms_sl,
                 "plain_ms": plain_times[True][0],
@@ -2071,6 +2285,8 @@ def main() -> None:
                 "source": "sigfish_tpu_torch/csrc/alu_peak.cu",
                 "replaces": "scripts/bench_vpu_peak.py:101",
                 "launches": probe_launches,
+                "launches_mesh": n10d["alu_peak"] + n10r["alu_peak"] + n10h["alu_peak"]
+                + n10g["alu_peak"],
                 "max_abs_err": probe_err,
                 "ms": probe_ms,
                 "plain_ms": probe_plain_ms,
@@ -2084,6 +2300,7 @@ def main() -> None:
                 "source": "sigfish_tpu_torch/csrc/events.cu",
                 "replaces": "sigfish_tpu/ops/events_device.py:264",
                 "launches": launches_ev4,
+                "launches_mesh": ev10,
                 "max_abs_err": 0.0,
                 "ms": t4["ms"],
                 "plain_ms": t4["plain_ms"],
@@ -2110,6 +2327,7 @@ def main() -> None:
                 "source": "sigfish_tpu_torch/csrc/polya.cu",
                 "replaces": "sigfish_tpu/ops/jnn_device.py:89",
                 "launches": launches_pa7,
+                "launches_mesh": pa10,
                 "max_abs_err": 0.0,
                 "ms": p7["ms"],
                 "plain_ms": p7["plain_ms"],

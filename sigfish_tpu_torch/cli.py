@@ -3,9 +3,9 @@
 The `dtw` option table of sigfish_tpu/cli.py, plus --device, and its
 `eval` subcommand. Every single-device dtw flag is served, with the
 host stages on the host or (--host-stages device) the events and the RNA
-polyA scan on the device; the flags of later slices (--mesh, --trace and
-the multi-host flags) are accepted and raise NotImplementedError naming
-the ROADMAP.md item that brings them. --accel
+polyA scan on the device, on one device or over a --mesh grid of them; the
+flags of later slices (--trace and the multi-host flags) are accepted and
+raise NotImplementedError naming the ROADMAP.md item that brings them. --accel
 and --engine choose among the JAX package's engines; the port picks its
 path with --device, so an explicit value of either is an error that
 names --device.
@@ -77,7 +77,7 @@ def make_dtw_parser(prog: str = "sigfish_tpu_torch dtw") -> argparse.ArgumentPar
     p.add_argument("-a", "--sam", action="store_true", help="output in SAM format")
     p.add_argument("--pore", choices=["r9", "r10", "rna004"], default=None, help="pore chemistry [auto]")
     p.add_argument("--ckpt", type=int, default=512, help="reference padding stride [512]")
-    p.add_argument("--mesh", default=None, metavar="DPxTP", help="device mesh (not served yet)")
+    p.add_argument("--mesh", default=None, metavar="DPxTP", help="map over a DP x TP grid of devices: the first DP*TP CUDA devices (DP*TP plain-version shards with --device cpu); tracks split over TP and each batch over DP, or, with fewer tracks than TP, the reference split by columns over all DP*TP devices (ring mode)")
     p.add_argument("--trace", default=None, metavar="DIR", help="write a profiler trace of the run to DIR (not served yet)")
     p.add_argument("--shard", default=None, metavar="I/N", help="map only record stripe I of N (not served yet)")
     p.add_argument("--hosts", type=int, default=None, metavar="N", help="number of hosts in the cluster (not served yet)")

@@ -116,9 +116,10 @@ def alu_peak(x: torch.Tensor, mode: str, iters: int) -> torch.Tensor:
     lib = _library()
     xc = x.contiguous()
     out = torch.empty_like(xc)
-    stream = torch.cuda.current_stream(xc.device).cuda_stream
-    err = lib.sf_alu_peak(xc.data_ptr(), out.data_ptr(), xc.shape[0], Q,
-                          MODES.index(mode), iters, stream)
+    # the runtime launches on the calling thread's current device
+    with torch.cuda.device(xc.device):
+        err = lib.sf_alu_peak(xc.data_ptr(), out.data_ptr(), xc.shape[0], Q, MODES.index(mode),
+                              iters, torch.cuda.current_stream(xc.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"alu_peak: CUDA launch failed (cudaError {err})")
     alu_peak.launches += 1

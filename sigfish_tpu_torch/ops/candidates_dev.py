@@ -133,3 +133,40 @@ def topk_candidates(
     if pack:
         return _pack(ts, tp)
     return ts, tp
+
+
+def select_topk_cands(sc: torch.Tensor, pos: torch.Tensor, k: int = 5):
+    """k selection rounds over an unordered candidate list: sc (B, C)
+    scores (BIG for an empty slot) and pos (B, C) i32 global first-min
+    columns (-1 for an empty slot). Each round takes the least score,
+    and among its ties the largest position: update_aln's insertion
+    order (sigfish.c:577-583, the later window wins ties), since windows
+    are disjoint column ranges and so position order is window order.
+    -2 sorts below an empty slot's -1, so an empty slot wins only when
+    every slot is empty. Returns (scores (B, k) best-first, pos (B, k)),
+    as the JAX package's select_topk_cands."""
+    sc = sc.clone()
+    rows = torch.arange(sc.shape[0], device=sc.device)
+    top_s, top_p = [], []
+    for _ in range(k):
+        m = sc.min(dim=1, keepdim=True).values
+        pick = torch.argmax(torch.where(sc <= m, pos, -2), dim=1)  # the first of equal maxima
+        s = sc[rows, pick]
+        top_s.append(s)
+        top_p.append(torch.where(s >= BIG, -1, pos[rows, pick]))
+        sc[rows, pick] = BIG
+    return torch.stack(top_s, dim=1), torch.stack(top_p, dim=1)
+
+
+def merge_gathered_topk(gathered: torch.Tensor, n_tp: int, k: int = 5) -> torch.Tensor:
+    """Merge n_tp shards' packed top-k lists, (B, n_tp * 2k) shard-major,
+    into the global packed (B, 2k). Exact: a window the whole-row
+    selection picks in round j has at most j-1 windows ranked above it,
+    so it is in its own shard's top-k, and select_topk_cands over the
+    union repeats the whole-row order, ties included (the shards hold
+    disjoint W-aligned column ranges)."""
+    B = gathered.shape[0]
+    blocks = gathered.reshape(B, n_tp, 2 * k)
+    sc = blocks[:, :, :k].reshape(B, n_tp * k)
+    pos = blocks[:, :, k:].contiguous().view(torch.int32).reshape(B, n_tp * k)
+    return _pack(*select_topk_cands(sc, pos, k))

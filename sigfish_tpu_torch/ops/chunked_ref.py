@@ -206,6 +206,33 @@ class WindowFold:
         return _pack(ts, tp)
 
 
+class ShardFold(WindowFold):
+    """The ring's per-shard fold (the JAX package's ring_topk_wavefront,
+    its `sub`): a WindowFold over one shard's n_sub sub-chunks, whose
+    first diagonal is the shard's column col_off = s * Rs. WindowFold's
+    arithmetic numbers the sub-chunk's windows from column c * Ds - (W-1)
+    - p of the shard, so its first nw_s = Rs / W + 1 slots are the JAX
+    package's shard frame: slot w holds window s * Rs / W - 1 + w, and
+    slots 0 and nw_s - 1 are the partial windows split with the shard
+    before and after. valid_seg: the shard's (n_sub, Ds) rows of the
+    ring's diagonal-indexed valid mask."""
+
+    def __init__(self, B: int, valid_seg: torch.Tensor, W: int, col_off: int):
+        super().__init__(B, valid_seg, W, nwin_tot=0)
+        self.col_off = col_off
+        self.nw_s = valid_seg.numel() // W + 1
+
+    def frame(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(wmin, wpos), both (B, nw_s): each window's first minimum and
+        its global column, -1 where no valid column reached the window.
+        Positions are kept shard-local in the fold (a slot-0 column lies
+        below the shard, so its local column is negative) and made global
+        here."""
+        wmin = self.wmin[:, : self.nw_s]
+        wpos = self.wpos[:, : self.nw_s]
+        return wmin, torch.where(wmin < BIG, wpos + self.col_off, wpos)
+
+
 class ClipFold:
     """The per-read window fold of clipped rows: for each read, a running
     (min, first column) per real window, numbered by clip_window_bases,

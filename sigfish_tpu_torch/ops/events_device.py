@@ -344,14 +344,14 @@ def detect_peaks(
     end_sum = torch.empty(W, **f64)
     end_sumsq = torch.empty(W, **f64)
     t1, t2 = (torch.empty((S, W), dtype=torch.float32, device=dev) for _ in range(2))
-    _check(_library().sf_events(
+    _launch(dev, "detect_peaks", _library().sf_events,
         sig_t.data_ptr(), nsamples.data_ptr(), raw_unit.data_ptr(), offset.data_ptr(), S, W, E,
         params["window_length1"], params["window_length2"], params["threshold1"],
         params["threshold2"], params["peak_height"], A.data_ptr(), Q.data_ptr(),
         peaks.data_ptr(), counts.data_ptr(), overflow.data_ptr(), psum.data_ptr(),
         psumsq.data_ptr(), end_sum.data_ptr(), end_sumsq.data_ptr(), t1.data_ptr(),
-        t2.data_ptr(), _stream(dev),
-    ), "detect_peaks")
+        t2.data_ptr(),
+    )
     detect_peaks.launches += 1
     return Peaks(A[:, :B], Q[:, :B], peaks[:B], counts[:B], overflow[:B], psum[:B], psumsq[:B],
                  end_sum[:B], end_sumsq[:B])
@@ -360,11 +360,12 @@ def detect_peaks(
 detect_peaks.launches = 0
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _check(err: int, name: str) -> None:
+def _launch(dev: torch.device, name: str, entry, *args) -> None:
+    """Call a C entry with args and dev's current stream, with dev the
+    current device: the runtime launches on, and cudaFuncSetAttribute
+    sets the shared memory of, the calling thread's current device."""
+    with torch.cuda.device(dev):
+        err = entry(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
@@ -399,10 +400,10 @@ def prefix_stage(sig_t, nsamples, raw_unit, offset):
     f64 = dict(dtype=torch.float64, device=dev)
     A, Q = torch.empty((S + 1, W), **f64), torch.empty((S + 1, W), **f64)
     end_sum, end_sumsq = torch.empty(W, **f64), torch.empty(W, **f64)
-    _check(_library().sf_events_prefix(
+    _launch(dev, "prefix_stage", _library().sf_events_prefix,
         sig_t.data_ptr(), nsamples.data_ptr(), raw_unit.data_ptr(), offset.data_ptr(), S, W,
-        A.data_ptr(), Q.data_ptr(), end_sum.data_ptr(), end_sumsq.data_ptr(), _stream(dev),
-    ), "prefix_stage")
+        A.data_ptr(), Q.data_ptr(), end_sum.data_ptr(), end_sumsq.data_ptr(),
+    )
     return A[:, :B], Q[:, :B], end_sum[:B], end_sumsq[:B]
 
 
@@ -416,10 +417,10 @@ def tstat_stage(A, Q, nsamples, rna: bool):
         return tstat_plain(A, Q, nsamples, w1), tstat_plain(A, Q, nsamples, w2)
     S, B = A.shape[0] - 1, A.shape[1]
     t1, t2 = (torch.empty((S, B), dtype=torch.float32, device=dev) for _ in range(2))
-    _check(_library().sf_events_tstat(
+    _launch(dev, "tstat_stage", _library().sf_events_tstat,
         A.data_ptr(), Q.data_ptr(), nsamples.data_ptr(), S, B, w1, w2, t1.data_ptr(),
-        t2.data_ptr(), _stream(dev),
-    ), "tstat_stage")
+        t2.data_ptr(),
+    )
     return t1, t2
 
 
@@ -437,12 +438,11 @@ def detector_stage(t1, t2, nsamples, rna: bool, E: int):
     peaks = torch.zeros((W, E), dtype=torch.int32, device=dev)
     counts = torch.empty(W, dtype=torch.int32, device=dev)
     overflow = torch.empty(W, dtype=torch.bool, device=dev)
-    _check(_library().sf_events_detect(
+    _launch(dev, "detector_stage", _library().sf_events_detect,
         t1.data_ptr(), t2.data_ptr(), nsamples.data_ptr(), S, W, E, params["window_length1"],
         params["window_length2"], params["threshold1"], params["threshold2"],
         params["peak_height"], peaks.data_ptr(), counts.data_ptr(), overflow.data_ptr(),
-        _stream(dev),
-    ), "detector_stage")
+    )
     return peaks[:B], counts[:B], overflow[:B]
 
 
@@ -459,10 +459,10 @@ def gather_stage(A, Q, peaks, counts, nsamples):
     B, E = peaks.shape
     peaks = peaks.clone()
     psum, psumsq = (torch.empty((B, E), dtype=torch.float64, device=dev) for _ in range(2))
-    _check(_library().sf_events_gather(
+    _launch(dev, "gather_stage", _library().sf_events_gather,
         A.data_ptr(), Q.data_ptr(), counts.data_ptr(), B, E, peaks.data_ptr(), psum.data_ptr(),
-        psumsq.data_ptr(), _stream(dev),
-    ), "gather_stage")
+        psumsq.data_ptr(),
+    )
     return psum, psumsq
 
 

@@ -285,12 +285,15 @@ def polya_end(
     sig_t, nsamples, raw_unit, offset = (pad_lanes(t, W) for t in (sig_t, nsamples, raw_unit,
                                                                    offset))
     out = torch.empty(W, dtype=torch.int32, device=sig_t.device)
-    err = _library().sf_polya(
-        sig_t.data_ptr(), nsamples.data_ptr(), raw_unit.data_ptr(), offset.data_ptr(), S, W,
-        v2.window, v2.std_scale, v2.seg_dist, v2.hi_thresh, v2.lo_thresh,
-        v1.corrector, v1.seg_dist, v1.window, v1.error, v1.window * v1.stall_len,
-        out.data_ptr(), torch.cuda.current_stream(sig_t.device).cuda_stream,
-    )
+    # the runtime launches on, and cudaFuncSetAttribute sets the shared
+    # memory of, the calling thread's current device
+    with torch.cuda.device(sig_t.device):
+        err = _library().sf_polya(
+            sig_t.data_ptr(), nsamples.data_ptr(), raw_unit.data_ptr(), offset.data_ptr(), S, W,
+            v2.window, v2.std_scale, v2.seg_dist, v2.hi_thresh, v2.lo_thresh,
+            v1.corrector, v1.seg_dist, v1.window, v1.error, v1.window * v1.stall_len,
+            out.data_ptr(), torch.cuda.current_stream(sig_t.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"polya_end: CUDA launch failed (cudaError {err})")
     polya_end.launches += 1

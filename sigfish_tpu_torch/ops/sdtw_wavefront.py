@@ -111,7 +111,8 @@ def wavefront_plain(
     returns the scores (B, D). With the carry (a1, a2, ywin, rswin) --
     all four or none, in sdtw_wavefront_carry's form -- it starts from
     that state and returns (scores, a1, a2, ywin, rswin), the state after
-    the segment's last diagonal."""
+    the segment's last diagonal. Counted in wavefront_plain.calls."""
+    wavefront_plain.calls += 1
     B, Q = queries.shape
     D = ypad.shape[1]
     dev = queries.device
@@ -151,6 +152,9 @@ def wavefront_plain(
     if not carry:
         return out
     return out, a1, b2, yf[None, :Q].clone(), rf[None, :Q].to(f32)
+
+
+wavefront_plain.calls = 0
 
 
 def wavefront_warps(B: int, Q: int) -> int:
@@ -269,12 +273,13 @@ def sdtw_wavefront(
     if start_lanes is not None:
         sl = start_lanes.to(torch.int32).contiguous()
     out = torch.empty((B, D), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.sf_wavefront(
-        q.data_ptr(), yp.data_ptr(), rp.data_ptr(),
-        None if sl is None else sl.data_ptr(), out.data_ptr(),
-        B, Q, D, lane, int(std), warps, stream,
-    )
+    # the runtime launches on the calling thread's current device
+    with torch.cuda.device(q.device):
+        err = lib.sf_wavefront(
+            q.data_ptr(), yp.data_ptr(), rp.data_ptr(),
+            None if sl is None else sl.data_ptr(), out.data_ptr(),
+            B, Q, D, lane, int(std), warps, torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"sdtw_wavefront: CUDA launch failed (cudaError {err})")
     sdtw_wavefront.launches += 1
@@ -357,14 +362,15 @@ def sdtw_wavefront_carry(
     # fresh outputs: every warp reads the incoming window, so it cannot
     # be overwritten in place
     state_out = [torch.empty_like(t) for t in state_in]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.sf_wavefront_carry(
-        q.data_ptr(), ypad.contiguous().data_ptr(), rspad.contiguous().data_ptr(),
-        None if sl is None else sl.data_ptr(),
-        *(t.data_ptr() for t in state_in), out.data_ptr(),
-        *(t.data_ptr() for t in state_out),
-        B, Q, D, lane, int(std), warps, stream,
-    )
+    yp, rp = ypad.contiguous(), rspad.contiguous()
+    with torch.cuda.device(q.device):
+        err = lib.sf_wavefront_carry(
+            q.data_ptr(), yp.data_ptr(), rp.data_ptr(),
+            None if sl is None else sl.data_ptr(),
+            *(t.data_ptr() for t in state_in), out.data_ptr(),
+            *(t.data_ptr() for t in state_out),
+            B, Q, D, lane, int(std), warps, torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"sdtw_wavefront_carry: CUDA launch failed (cudaError {err})")
     sdtw_wavefront_carry.launches += 1

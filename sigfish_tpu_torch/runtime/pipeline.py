@@ -41,15 +41,22 @@ rna; the chemistry from the header's sequencing_kit or --pore) with its
 3'-end tracks, reversed queries and, with -p -1, the query start found
 after the polyA tail on the host (ops/jnn.detect_polya_end); --sam,
 --from-end, --secondary (parsed, never printed, as in the reference),
---dtw-std, --full-ref and --invert; and --host-stages device. --mesh
-raises NotImplementedError naming the ROADMAP.md item (queue 1) that
-brings it.
+--dtw-std, --full-ref and --invert; and --host-stages device.
+
+--mesh DPxTP runs the sDTW and candidate stage over a (dp, tp) grid of
+devices (parallel/shard.py), as the JAX Core does: with at least TP
+tracks in tracks mode (whole tracks split over tp, the batch over dp),
+with fewer in ring mode (the layout split by columns over all DP*TP
+devices, the carry state passed from shard to shard). Everything else,
+and the ring's clipped reads, runs on the grid's first device over the
+mesh's layout.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as _fut
 import contextlib
+import math
 import os
 import threading
 import time
@@ -75,6 +82,7 @@ from ..ops.candidates import compute_mapq, rank_candidates
 from ..ops.candidates_dev import topk_candidates, window_top5
 from ..ops.chunked_ref import (
     CHUNK_AUTO_COLS,
+    DIAG_TILE,
     ClipFold,
     CornerFold,
     WindowFold,
@@ -87,6 +95,7 @@ from ..ops.events import DNA_PARAMS, RNA_PARAMS, get_events, get_events_prefix
 from ..ops.events_device import assemble_events, batch_tensors, detect_peaks, event_cap, to_host
 from ..ops.jnn_device import polya_end
 from ..ops.layout import (
+    PAD,
     build_column_maps,
     make_query_batch,
     pad_tracks,
@@ -97,12 +106,12 @@ from ..ops.layout import (
 from ..ops.sdtw_ref import path_to_map, subsequence_cost_seeded, subsequence_path
 from ..ops.sdtw_wavefront import sdtw_wavefront
 from ..output import paf_line, sam_line
+from ..parallel.shard import make_mesh, ring_shape, ring_topk, shard_streams, shard_tracks, sharded_topk
 from ..utils import log_info, log_verbose, log_warning
 
 # what brings each option that this slice does not serve (ROADMAP.md,
 # queue 1)
 _LATER = {
-    "mesh": "item 11 (multi-GPU mesh)",
     "trace": "item 6 (--trace, a torch.profiler trace)",
     "hosts": "item 12 (multi-host: --shard, --hosts, --host-id, --coordinator)",
 }
@@ -137,6 +146,10 @@ class Options:
     profile: bool = False
     ckpt: int = 512
     mesh: str | None = None
+    # the devices of the --mesh grid, first DP*TP of them, row by row (the
+    # JAX package's make_mesh(devices=...)); None: the first DP*TP CUDA
+    # devices with device="cuda", DP*TP times "cpu" with device="cpu"
+    mesh_devices: list[str] | None = None
     host_stages: str = "host"
     # reference-axis chunking: 0 = auto (chunk once R + Q passes
     # CHUNK_AUTO_COLS columns), -1 = never chunk, N > 0 = always chunk,
@@ -145,11 +158,8 @@ class Options:
     device: str = "cuda"
 
     def check_slice(self) -> None:
-        """Raise NotImplementedError for an option outside this slice, and
-        SystemExit for an unknown --host-stages, as the JAX package's Core
-        does."""
-        if self.mesh:
-            raise _later("--mesh", "mesh")
+        """Raise SystemExit for an unknown --host-stages, as the JAX
+        package's Core does."""
         if self.host_stages not in ("host", "device"):
             raise SystemExit(f"unknown --host-stages {self.host_stages!r}")
 
@@ -324,6 +334,15 @@ class Core:
         self.track_meta = state.track_meta
         self.pad_q = max(128, ((opt.query_size + 127) // 128) * 128)
 
+        # --mesh DPxTP: the (dp, tp) grid of devices and its layout
+        self.mesh = None       # rows of torch.devices (parallel.make_mesh)
+        self.mesh_mode = None  # "tracks" or "ring"
+        if opt.mesh:
+            dp_s, tp_s = opt.mesh.lower().split("x")
+            n_dp, n_tp = int(dp_s), int(tp_s)
+            if n_dp * n_tp > 1:
+                self._mesh_layout(n_dp, n_tp, W)
+
         # static column maps for the candidate reduction, on the device
         u_map, valid_map = build_column_maps(
             self.track_offsets, self.ref_cat.shape[0], track_sizes=self.track_sizes
@@ -331,6 +350,8 @@ class Core:
         self.u_dev = torch.from_numpy(u_map).to(self.device)
         self.valid_dev = torch.from_numpy(valid_map).to(self.device)
         self.valid_host = valid_map
+        if self.mesh_mode is not None:
+            self._mesh_buffers(u_map, valid_map, W)
         # wavefront reference buffers per Q, uploaded once per Core
         self._wf_cache: dict[int, tuple[torch.Tensor, torch.Tensor, int]] = {}
         # chunked-reference segments per (Q, ref_chunk), uploaded once
@@ -347,14 +368,17 @@ class Core:
         # how many times each device route ran: "oneshot" (sub-)batches,
         # "clip_pass" of them whose clipped rows the one-shot route's clip
         # pass served, "chunked" carry chains, "clip_fold" batches whose
-        # clipped rows the chunked route's clip fold served
-        self.routes = {"oneshot": 0, "clip_pass": 0, "chunked": 0, "clip_fold": 0}
+        # clipped rows the chunked route's clip fold served, "mesh_tracks"
+        # and "ring" batches of the two --mesh engines
+        self.routes = {"oneshot": 0, "clip_pass": 0, "chunked": 0, "clip_fold": 0,
+                       "mesh_tracks": 0, "ring": 0}
         self._routes_lock = threading.Lock()
         # --profile-cpu on the card: CUDA event pairs around each route's
         # device work, read by span_seconds once the run has drained;
         # "host_stages": around each bucket's work on host_stream, in every
         # --host-stages device run on the card
-        self.spans = {"oneshot": [], "chunked": [], "host_stages": []}
+        self.spans = {"oneshot": [], "chunked": [], "host_stages": [], "mesh_tracks": [],
+                      "ring": []}
         # one one-shot submission at a time: each holds its (rows, D)
         # buffers until its launches are queued, and callers on several
         # threads (force_oneshot) would otherwise hold them all at once.
@@ -393,6 +417,98 @@ class Core:
         if opt.num_thread > 1:
             self._pool = _fut.ThreadPoolExecutor(max_workers=opt.num_thread)
 
+    def _mesh_layout(self, n_dp: int, n_tp: int, W: int) -> None:
+        """The --mesh grid and its reference layout, by the JAX Core's
+        rule: with fewer tracks than TP, ring mode, all DP*TP devices on
+        tp over the single-device layout cut by columns; else tracks mode,
+        the tracks split over tp by shard_tracks. ref_cat, reset and
+        track_offsets become the mesh's layout (the state keeps its own),
+        and device the grid's first device, which runs everything but
+        the mesh engines. The tracks come back from the state's offsets
+        and sizes."""
+        opt = self.opt
+        devices = opt.mesh_devices
+        if devices is None and self.device.type == "cpu":
+            devices = ["cpu"] * (n_dp * n_tp)
+        tracks = [self.ref_cat[o : o + n]
+                  for o, n in zip(self.track_offsets[:-1].tolist(), self.track_sizes)]
+        if len(tracks) < n_tp:
+            # whole tracks cannot fill the shards (one --full-ref contig):
+            # split by columns, and pass the DP carry around the ring
+            self.mesh_mode = "ring"
+            n_tp *= n_dp
+            self.mesh = make_mesh(1, n_tp, devices)
+            ref_cat, reset, offsets = pad_tracks(tracks, ckpt=opt.ckpt, align=W)
+            R = ref_cat.shape[0]
+            # + pad_q: the ring needs >= W-1 PAD diagonals after the last
+            # real column to flush its emissions; sub-chunks of Ds = Rs /
+            # ring_n_sub diagonals, a multiple of W and of the kernel's tile
+            Rs, self.ring_n_sub = ring_shape(
+                R + self.pad_q, n_tp, math.lcm(opt.ckpt, W, DIAG_TILE), opt.ref_chunk
+            )
+            ref_cat = np.concatenate([ref_cat, np.full(n_tp * Rs - R, PAD, np.float32)])
+            reset = np.concatenate([reset, np.zeros(n_tp * Rs - R, bool)])
+            if R < reset.shape[0]:
+                reset[R] = True
+        else:
+            self.mesh_mode = "tracks"
+            self.mesh = make_mesh(n_dp, n_tp, devices)
+            sref, sreset, soffs, assign = shard_tracks(tracks, n_tp, ckpt=opt.ckpt, align=W)
+            Rs = sref.shape[1]
+            # the gathered layout, shard-major: the original track order,
+            # as the split is contiguous
+            ref_cat, reset = sref.reshape(-1), sreset.reshape(-1)
+            offsets = np.zeros(len(tracks) + 1, dtype=np.int64)
+            for s, a in enumerate(assign):
+                for li, gi in enumerate(a):
+                    offsets[gi] = s * Rs + soffs[s, li]
+            offsets[-1] = n_tp * Rs
+        kinds = {d.type for row in self.mesh for d in row}
+        if kinds != {self.device.type}:
+            raise ValueError(f"mesh devices {sorted(kinds)} on a device={opt.device!r} run")
+        self.device = self.mesh[0][0]
+        self.shard_Rs = Rs
+        self.ref_cat, self.reset, self.track_offsets = ref_cat, reset, offsets
+
+    def _mesh_buffers(self, u_map: np.ndarray, valid_map: np.ndarray, W: int) -> None:
+        """Each shard's buffers of the selected mode on its device (one
+        copy per device and shard), and a stream per shard. Tracks: the
+        one-shot kernel's (1, D) ypad and rspad at pad_q, padded to the
+        shards' common D (PAD values, a reset at each shard's pad
+        boundary), and the shard's column maps. Ring: the shard's
+        columns as (n_sub, 1, Ds) value and reset segments and its rows
+        of the diagonal-indexed valid mask, vd[lane:] = valid[:R - lane]."""
+        n_tp, Rs = len(self.mesh[0]), self.shard_Rs
+        if self.mesh_mode == "tracks":
+            pads = [prepare_wavefront_inputs(r, rs, self.pad_q) for r, rs in
+                    zip(self.ref_cat.reshape(n_tp, Rs), self.reset.reshape(n_tp, Rs))]
+            D = max(d for _, _, d in pads)
+            ypad = np.full((n_tp, 1, D), PAD, dtype=np.float32)
+            rspad = np.zeros((n_tp, 1, D), dtype=np.float32)
+            for s, (yp, rp, d) in enumerate(pads):
+                ypad[s, :, :d], rspad[s, :, :d] = yp, rp
+                if d < D:
+                    rspad[s, 0, d] = 1.0
+            host = list(zip(ypad, rspad, u_map.reshape(n_tp, Rs), valid_map.reshape(n_tp, Rs)))
+        else:
+            lane, R = W - 1, self.ref_cat.shape[0]
+            # every real column emits at a diagonal inside the layout
+            # (the + pad_q of the ring's sizing)
+            assert not valid_map[R - lane :].any()
+            vd = np.zeros(R, dtype=bool)
+            vd[lane:] = valid_map[: R - lane]
+            seg = (n_tp, self.ring_n_sub, 1, Rs // self.ring_n_sub)
+            host = list(zip(self.ref_cat.reshape(seg), self.reset.astype(np.float32).reshape(seg),
+                            vd.reshape(seg[:2] + seg[3:])))
+        on_dev: dict[tuple[str, int], tuple] = {}
+        for row in self.mesh:
+            for s, d in enumerate(row):
+                if (str(d), s) not in on_dev:
+                    on_dev[str(d), s] = tuple(
+                        torch.from_numpy(np.ascontiguousarray(a)).to(d) for a in host[s])
+        self._mesh_bufs = [[on_dev[str(d), s] for s, d in enumerate(row)] for row in self.mesh]
+        self._mesh_streams = shard_streams(self.mesh)
+
     def _wavefront_inputs(self, Q: int) -> tuple[torch.Tensor, torch.Tensor, int]:
         """The (1, D) reference value and reset buffers for a Q-wide
         query batch, on the device for the life of the Core."""
@@ -421,15 +537,20 @@ class Core:
     @contextlib.contextmanager
     def _span(self, route: str):
         """Record CUDA events around the device work queued inside the
-        block, into spans[route], when profiling on the card."""
+        block, into spans[route], when profiling on the card: on the
+        Core's device's current stream, the end behind the current
+        streams of every --mesh device (where the shards' work ends)."""
         if not (self.opt.profile and self.device.type == "cuda"):
             yield
             return
+        main = torch.cuda.current_stream(self.device)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
+        e0.record(main)
         yield
-        e1.record()
+        for d in {d for row in self.mesh or () for d in row} - {self.device}:
+            main.wait_stream(torch.cuda.current_stream(d))
+        e1.record(main)
         with self._routes_lock:
             self.spans[route].append((e0, e1))
 
@@ -437,7 +558,7 @@ class Core:
         """Device seconds inside spans[route] (a --profile-cpu run on the
         card, one batch in flight at a time, so no two spans overlap; for
         "host_stages" any run, its spans in order on one stream)."""
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(self.device)
         return sum(a.elapsed_time(b) for a, b in self.spans[route]) / 1e3
 
     def _submit_parts(self, submit, qb: np.ndarray, qlens: np.ndarray, force_oneshot: bool):
@@ -464,6 +585,15 @@ class Core:
         """Wait for a submitted batch's results and unpack them."""
         if "parts" in handle:
             return self._collect_parts(self.sdtw_candidates_collect, handle)
+        if "packed4" in handle:
+            # the tracks engine: one (B/dp, 4k) buffer per grid row, the
+            # W-window top-5 and the per-read-window top-5 side by side
+            buf = np.concatenate([_host_array(c) for c in handle["packed4"]])[: handle["B"]]
+            ts, tp = unpack_top5(buf[:, :10])
+            qlens, W = handle["qlens"], self.opt.query_size
+            rows = np.where((qlens > 0) & (qlens != W))[0]
+            ts[rows], tp[rows] = unpack_top5(buf[rows, 10:])
+            return ts, tp
         if handle["packed"] is None:
             # clip-only submission (every live row clipped): no main pass
             # ran; the clip entries below fill every real row
@@ -477,6 +607,12 @@ class Core:
             rows = handle["clip_rows"]
             ts[rows] = cs
             tp[rows] = cp
+        if "clip_sub" in handle:
+            # the ring's clipped rows, a padded single-device sub-batch
+            cs, cp = self.sdtw_candidates_collect(handle["clip_sub"])
+            rows = handle["clip_rows"]
+            ts[rows] = cs[: rows.size]
+            tp[rows] = cp[: rows.size]
         return ts, tp
 
     def _clip_pass(
@@ -509,11 +645,69 @@ class Core:
         can overlap the next batch's host stages with this batch's
         device time.
 
-        Routing (that of the JAX package): ref_chunk > 0 always takes
-        the chunked route, 0 takes it once R + Q passes CHUNK_AUTO_COLS,
-        -1 never does. force_oneshot takes the one-shot route whatever
-        the reference's length (to compare the two routes)."""
-        parts = self._submit_parts(self.sdtw_candidates_submit, qb, qlens, force_oneshot)
+        Routing (that of the JAX package): on a --mesh grid the tracks or
+        the ring engine, whole, with no DEVICE_CHUNK split; else
+        ref_chunk > 0 always takes the chunked route, 0 takes it once R
+        + Q passes CHUNK_AUTO_COLS, -1 never does. force_oneshot takes the
+        one-shot route on one device whatever the reference's length (to
+        compare the routes)."""
+        if self.mesh_mode == "tracks" and not force_oneshot:
+            return self._tracks_submit(qb, qlens)
+        if self.mesh_mode == "ring" and not force_oneshot:
+            return self._ring_submit(qb, qlens)
+        return self._single_submit(qb, qlens, force_oneshot)
+
+    def _tracks_submit(self, qb: np.ndarray, qlens: np.ndarray) -> dict:
+        """The tracks engine (parallel.sharded_topk) over one batch, padded
+        to a multiple of DP with full-length empty rows; its clipped reads
+        are served in the same pass, by the per-read-window half."""
+        B = qb.shape[0]
+        W = self.opt.query_size
+        qb, _ = shift_queries_for_clip(qb, qlens, W - 1)
+        padb = (-B) % len(self.mesh)
+        qb = np.pad(qb, ((0, padb), (0, 0)))
+        qlens_pad = np.pad(qlens.astype(np.int32), (0, padb), constant_values=max(W, 1))
+        self._count_route("mesh_tracks")
+        with self._oneshot_lock, self._span("mesh_tracks"):
+            outs = sharded_topk(qb, qlens_pad, self._mesh_bufs, self.mesh, self._mesh_streams,
+                                self.shard_Rs, W - 1)
+            return dict(packed4=[_start_host_copy(o) for o in outs], qlens=qlens, B=B)
+
+    def _ring_submit(self, qb: np.ndarray, qlens: np.ndarray) -> dict:
+        """The ring engine (parallel.ring_topk) over one batch, in the
+        largest count of microbatches up to 32 that divides it. Clipped
+        reads ride the ring shifted (their W-window results are not
+        read): their per-read windows straddle shard boundaries, so they
+        are served again as one power-of-two sub-batch through the
+        single-device route (one-shot or chunked by size) on the grid's
+        first device, its pad rows of qlen 0."""
+        B, Q = qb.shape
+        W = self.opt.query_size
+        n_micro = min(B, 32)
+        while B % n_micro:
+            n_micro -= 1
+        qb_k, fs = shift_queries_for_clip(qb, qlens, W - 1)
+        self._count_route("ring")
+        with self._span("ring"):
+            out = ring_topk(qb_k, fs, self._mesh_bufs[0], self.mesh[0], self._mesh_streams[0],
+                            n_micro, W - 1, W, self.shard_Rs)
+            handle = dict(packed=_start_host_copy(out), B=B)
+        clip_rows = np.where((qlens > 0) & (qlens != W))[0]
+        if clip_rows.size:
+            bc = 1 << (int(clip_rows.size) - 1).bit_length()
+            qb_c = np.zeros((bc, Q), dtype=qb.dtype)
+            qb_c[: clip_rows.size] = qb[clip_rows]
+            qlens_c = np.zeros(bc, dtype=qlens.dtype)
+            qlens_c[: clip_rows.size] = qlens[clip_rows]
+            handle["clip_rows"] = clip_rows
+            handle["clip_sub"] = self._single_submit(qb_c, qlens_c)
+        return handle
+
+    def _single_submit(
+        self, qb: np.ndarray, qlens: np.ndarray, force_oneshot: bool = False
+    ) -> dict:
+        """sdtw_candidates_submit on one device, the Core's."""
+        parts = self._submit_parts(self._single_submit, qb, qlens, force_oneshot)
         if parts is not None:
             return parts
         B, Q = qb.shape

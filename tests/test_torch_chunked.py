@@ -489,7 +489,8 @@ def test_chunked_batch_of_clipped_reads_only(workload, monkeypatch):
     qlist = [rng.standard_normal(n).astype(np.float32) for n in (20, W_PIPE - 1, 33, 7)]
     qb, qlens, _ = layout.make_query_batch(qlist, pad_q=core.pad_q)
     got = core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens))
-    assert core.routes == {"oneshot": 0, "clip_pass": 0, "chunked": 1, "clip_fold": 1}
+    assert core.routes == {"oneshot": 0, "clip_pass": 0, "chunked": 1, "clip_fold": 1,
+                           "mesh_tracks": 0, "ring": 0}
     assert seen == [(4, True, ["ClipFold"])]
     want = core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens, force_oneshot=True))
     core.close()

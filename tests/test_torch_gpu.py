@@ -291,9 +291,13 @@ def test_events_stages_bitwise_vs_plain(cuda_device, rna, kind):
     t1 and t2 against tstat_plain, peaks, counts and overflow against
     detector_plain, the gathered sums against _gather; then the whole
     call, counted once, against all of them."""
+    _events_stages_check(cuda_device, rna, kind)
+
+
+def _events_stages_check(dev, rna, kind):
     from sigfish_tpu_torch.ops import events_device as ev
 
-    args = ev.batch_tensors(*_event_batch(_load_smoke(), kind, rna), cuda_device)
+    args = ev.batch_tensors(*_event_batch(_load_smoke(), kind, rna), dev)
     sig, ns, ru, of = args
     E = ev.event_cap(sig.shape[0])
     prm = ev.RNA_PARAMS if rna else ev.DNA_PARAMS
@@ -313,7 +317,7 @@ def test_events_stages_bitwise_vs_plain(cuda_device, rna, kind):
             assert _same_bytes(g, w), (i, j)
     before = ev.detect_peaks.launches
     got = ev.detect_peaks(*args, rna, E)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     assert ev.detect_peaks.launches == before + 1
     for name, g, w in zip(ev.Peaks._fields, got, (A, Q, pk, cn, ov, ps, pq, es, eq)):
         assert _same_bytes(g, w), name
@@ -401,3 +405,73 @@ def test_host_stages_device_on_the_card(cuda_device, tmp_path):
         assert ran == ((True, True) if hs == "device" else (False, False))
         assert (core.host_stream is not None) == (hs == "device")
     assert pafs[0] == pafs[1] != ""
+
+
+def _mesh_run(smoke, tmp_path, mesh, n_dev, device):
+    """(packed candidates of one batch, PAF) of a --mesh run over a
+    one-contig DNA workload (-p 210 -q 64 clips its short reads) on
+    n_dev "cuda:0" entries or on the CPU."""
+    from sigfish_tpu_torch.runtime import pipeline as tp
+
+    d = tmp_path / "w"
+    if not d.exists():
+        d.mkdir()
+        smoke.make_workload(str(d), 900, 40, 41)
+    fa, bl = str(d / "ref.fa"), str(d / "reads.blow5")
+    opt = dict(query_size=64, prefix_size=210, ckpt=64, batch_size=64, num_thread=2, mesh=mesh,
+               mesh_devices=[device] * n_dev, device=device.split(":")[0])
+    core = tp.Core(fa, bl, tp.Options(**opt))
+    works = [tp._prepare_read(core, b) for b in core.sf.read_batch(64, 1 << 40)]
+    qb, qlens, _ = tp.make_query_batch([w.query for w in works if not w.skip], pad_q=core.pad_q)
+    assert (qlens < 64).sum() >= 2
+    ts, tp_ = core.sdtw_candidates_collect(core.sdtw_candidates_submit(qb, qlens))
+    core.close()
+    core = tp.Core(fa, bl, tp.Options(**opt))
+    out = io.StringIO()
+    tp.run_dtw(core, out)
+    core.close()
+    return ts.view(np.int32), tp_, out.getvalue(), core
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh,n_dev,mode", [("2x2", 4, "tracks"), ("1x4", 4, "ring")])
+def test_mesh_on_the_card_vs_cpu(cuda_device, tmp_path, mesh, n_dev, mode):
+    """A tracks mesh and a ring mesh over one card listed n times (a
+    stream per shard): the batch's top-5 scores and positions bitwise and
+    the PAF byte for byte the CPU's; no plain sweep ran on the card."""
+    smoke = _load_smoke()
+    plain = wf.wavefront_plain.calls
+    ts, tp_, paf, core = _mesh_run(smoke, tmp_path, mesh, n_dev, "cuda:0")
+    assert wf.wavefront_plain.calls == plain
+    assert core.mesh_mode == mode and core.device == torch.device("cuda", 0)
+    want = _mesh_run(smoke, tmp_path, mesh, n_dev, "cpu")
+    assert np.array_equal(ts, want[0]) and np.array_equal(tp_, want[1])
+    assert paf == want[2] != ""
+
+
+@pytest.mark.gpu
+def test_kernels_on_a_second_card(cuda_device):
+    """Each wrapper launches on its tensor's card with the current device
+    left at 0 (a stream and shared-memory attribute of cuda:1, not of
+    cuda:0), bitwise against its plain version. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from sigfish_tpu_torch.ops import events_device as ev
+    from sigfish_tpu_torch.ops import jnn_device as jd
+
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    qb, fs, ypad, rspad, lane = _case(5, 100, 128)
+    q, y, r, sl = (torch.from_numpy(a).to(dev) for a in (qb, ypad, rspad, fs))
+    got = wf.sdtw_wavefront(q, y, r, lane, start_lanes=sl)
+    assert _same_bytes(got, wf.wavefront_plain(q, y, r, lane, sl))
+    state = wf.carry_fresh_state(q.shape[0], q.shape[1], dev)
+    got = wf.sdtw_wavefront_carry(q, y, r, *state, lane, start_lanes=sl)
+    assert _same_bytes(got[0], wf.wavefront_plain(q, y, r, lane, sl, False, *state)[0])
+    x = torch.from_numpy(np.random.default_rng(3).random((40, ap.Q), np.float32)).to(dev)
+    assert _same_bytes(ap.alu_peak(x, "mix", 24), ap.alu_peak_plain(x, "mix", 24))
+    _events_stages_check(dev, True, "fuzz")  # the four stages, then detect_peaks
+    args = ev.batch_tensors(*_load_smoke().host_stage_batch(7, True), dev)
+    assert _same_bytes(jd.polya_end(*args, 0), jd.polya_end_plain(*args, 0))
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0

@@ -119,6 +119,8 @@ _MODULES = [
     "sigfish_tpu_torch.ops.sdtw_ref",
     "sigfish_tpu_torch.ops.sdtw_wavefront",
     "sigfish_tpu_torch.output",
+    "sigfish_tpu_torch.parallel",
+    "sigfish_tpu_torch.parallel.shard",
     "sigfish_tpu_torch.runtime.pipeline",
     "sigfish_tpu_torch.scripts",
     "sigfish_tpu_torch.scripts.bench_alu_peak",

@@ -106,3 +106,35 @@ def test_ptxas_table_reads_each_entry(smoke):
         dict(entry="prefix_kernel", registers=58, smem=32768, spill_stores=0, spill_loads=0),
         dict(entry="polya_kernel", registers=40, smem=0, spill_stores=12, spill_loads=28),
     ]
+
+
+def test_phase10_mesh_workloads(smoke, tmp_path):
+    """Phase 10's choices: its ring run's one contig gives 2 tracks, fewer
+    than MESH_RING's TP, so the Core takes ring mode, and the first
+    N10_READS reads hold clipped ones (i % 10 == 9); over phase 6's E.
+    coli layout the auto rule gives ring_n_sub > 1; the tracks runs have
+    at least TP tracks (phase 7: 160)."""
+    import math
+
+    from sigfish_tpu_torch.ops.chunked_ref import DIAG_TILE
+    from sigfish_tpu_torch.parallel import ring_shape
+
+    fa, bl, _ = smoke.make_workload(str(tmp_path), 2_000, 20, smoke.SEED + 6)
+    core = pl.Core(fa, bl, pl.Options(query_size=smoke.W, prefix_size=smoke.PREFIX, num_thread=1,
+                                      device="cpu", mesh=smoke.MESH_RING))
+    n_dp, n_tp = (int(x) for x in smoke.MESH_RING.split("x"))
+    assert len(core.track_sizes) == 2 < n_tp and core.mesh_mode == "ring"
+    assert [len(row) for row in core.mesh] == [n_dp * n_tp]
+    works = [pl._prepare_read(core, b) for b in core.sf.read_batch(64, 1 << 40)]
+    core.close()
+    assert [w.flag_too_short for w in works] == [i % 10 == 9 for i in range(20)]
+    assert smoke.N10_READS >= 10 and smoke.N10_READS == smoke.BATCH
+    # E. coli: both strands of 4,641,647 events, each aligned to W, then
+    # to the 512-column ckpt
+    n_ev = -(-(smoke.ECOLI_BASES - 5) // smoke.W) * smoke.W
+    R = -(-2 * n_ev // 512) * 512
+    assert R == 9_283_584
+    Rs, n_sub = ring_shape(R + 256, n_dp * n_tp, math.lcm(512, smoke.W, DIAG_TILE))
+    assert n_sub > 1 and Rs % n_sub == 0
+    for mesh in (smoke.MESH_DNA, smoke.MESH_RNA):
+        assert int(mesh.split("x")[1]) <= 2 <= smoke.N7_TX

@@ -108,7 +108,8 @@ def test_std_exercises_its_path(smoke, workload, port_runs):
     _, _, truth = workload
     paf, core = port_runs["dtw_std"]
     assert core.too_short >= 2 and core.prefix_fail >= 1
-    assert core.routes == {"oneshot": 2, "clip_pass": 0, "chunked": 0, "clip_fold": 0}
+    assert core.routes == {"oneshot": 2, "clip_pass": 0, "chunked": 0, "clip_fold": 0,
+                           "mesh_tracks": 0, "ring": 0}
     lengths = dict(zip(core.ref.ref_names, core.ref.ref_lengths))
     offsets = dict(zip(core.ref.ref_names, core.ref.ref_st_offset))
     for ln in paf.splitlines():
@@ -149,7 +150,8 @@ def test_std_corner_fold_equals_oneshot_corners(workload, port_runs, monkeypatch
         core.sdtw_std_corners_submit(qb, qlens, force_oneshot=True))
     assert chunked.shape == (len(qlist), N_TX)
     np.testing.assert_array_equal(chunked.view(np.int32), one.view(np.int32))
-    assert core.routes == {"oneshot": 1, "clip_pass": 0, "chunked": 1, "clip_fold": 0}
+    assert core.routes == {"oneshot": 1, "clip_pass": 0, "chunked": 1, "clip_fold": 0,
+                           "mesh_tracks": 0, "ring": 0}
     core.close()
 
 
