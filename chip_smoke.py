@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one Hopper GPU
 (compute capability 9.0), nvcc and g++. It builds the port's kernels from
-the checkout's sources, then runs ten phases, and fails (exit code 1,
+the checkout's sources, then runs eleven phases, and fails (exit code 1,
 no result line) if any of them fails:
 
   1. device   CUDA present with capability (9, 0); prints the card's
@@ -198,6 +198,23 @@ no result line) if any of them fails:
               0's tracks, one row in ten from its start lane), and a
               ring hop at B=16 (shard 0's last sub-chunk from a fresh
               state, then shard 1's first from the state handed on).
+  11. hosts   the multi-host run, `python -m sigfish_tpu_torch.cli dtw`
+              processes on the card, each with a time limit: a --hosts 2
+              cluster (--host-id, --coordinator localhost:PORT, a
+              TCPStore served by host 0) over phase 4's workload, host
+              0's -o byte-identical to phase 4's PAF, the peer's -o never
+              created and the (all 2 hosts) counters phase 4's; the same
+              over phase 7's with --host-stages device (byte-identical to
+              phase 7's PAF; the wavefront, events and polyA kernels
+              launched in each process, read from its -v 5 report);
+              --shard 0/2 and 1/2 over phase 4's side by side, each
+              stripe the phase-4 lines of its records (index = I mod 2)
+              in file order; and --trace DIR over phase 4's run in this
+              process (its PAF phase 4's, the Chrome trace's events of
+              the wavefront kernel, by its __global__ name, counted
+              beside the launch counter, the kernels' busy seconds beside
+              the trace's span). Prints each run's wall seconds, reads/s
+              and each host's Data processing time.
 
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -247,6 +264,11 @@ MESH_DNA = "2x1"        # tracks mode over phase 4's workload
 MESH_RNA = "2x2"        # tracks mode over phase 7's 160 tracks
 MESH_RING = "1x4"       # ring mode over phase 6's E. coli: 2 tracks < TP
 N10_READS = 512         # the ring's one batch: phase 6's first reads, clipped ones among them
+
+# phase 11: the multi-host run, `python -m sigfish_tpu_torch.cli dtw`
+# processes on the card over phase 4's and phase 7's workloads
+HOSTS = 2
+HOST_TIMEOUT_S = 300    # each phase-11 command's limit, its processes together
 
 # workload of phase 8: the rest of the dtw surface
 N8_READS = 1_536        # R10 DNA reads over a phase-4-size reference
@@ -741,6 +763,99 @@ def wavefront_instance(entry: str) -> dict | None:
     return dict(Q=32 * rows * warps, rows=rows, warps=warps, std=std, carry=carry, fs0=fs0)
 
 
+def dtw_argv(fa: str, bl: str, rna: bool = False) -> list[str]:
+    """The `dtw` arguments of phase 4's run_port call (phase 7's with
+    rna=True): the file pair, -K, -t, -p and -q."""
+    opt = (["--rna", "-q", str(RNA_OPT["query_size"]), "-p", str(RNA_OPT["prefix_size"])]
+           if rna else ["-p", str(PREFIX), "-q", str(W)])
+    return [fa, bl, "-K", str(BATCH), "-t", str(THREADS), *opt]
+
+
+def stripe(paf: str, i: int, n: int) -> str:
+    """The lines of paf whose read's record index is i mod n, in file
+    order: the generators name record r read%05d."""
+    return "".join(ln + "\n" for ln in paf.splitlines() if int(ln.split("\t")[0][4:]) % n == i)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_procs(cmds: list[list[str]], d: str, tag: str) -> tuple[list[int], list[str], float]:
+    """Run `python -m sigfish_tpu_torch.cli dtw CMD` for each command, side
+    by side, from the checkout's root, each one's stderr into a file
+    under d. Returns (exit codes, stderr texts, wall seconds). Every
+    process is stopped before it returns; past HOST_TIMEOUT_S the phase
+    fails."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SIGFISH_")}
+    errs = [os.path.join(d, f"{tag}{i}.err") for i in range(len(cmds))]
+    procs = []
+    t0 = time.time()
+    try:
+        for cmd, err in zip(cmds, errs):
+            with open(err, "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "sigfish_tpu_torch.cli", "dtw", *cmd], cwd=REPO,
+                    env=env, stdout=subprocess.DEVNULL, stderr=fh))
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + HOST_TIMEOUT_S - time.time()))
+    except subprocess.TimeoutExpired:
+        fail(f"phase 11: {tag} ran past {HOST_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dt = time.time() - t0
+    texts = []
+    for e in errs:
+        with open(e) as fh:
+            texts.append(fh.read())
+    return [p.returncode for p in procs], texts, dt
+
+
+def run_hosts(argv: list[str], n: int, d: str, tag: str) -> tuple[list[str], list[str], float]:
+    """An n-host cluster over argv on the card (-v 5: each host prints
+    its kernel launches), host i writing -o d/<tag><i>.out. A port taken
+    again before host 0 binds it retries once. Returns (outputs, stderr
+    texts, wall seconds); fails on any non-zero exit."""
+    for attempt in range(2):
+        port = free_port()
+        outs = [os.path.join(d, f"{tag}{i}.out") for i in range(n)]
+        cmds = [[*argv, "--hosts", str(n), "--host-id", str(i), "--coordinator",
+                 f"localhost:{port}", "-o", outs[i], "-v", "5"] for i in range(n)]
+        rcs, texts, dt = run_procs(cmds, d, tag)
+        if attempt or not any("EADDRINUSE" in t or "ddress already in use" in t for t in texts):
+            break
+    for i, (rc, t) in enumerate(zip(rcs, texts)):
+        if rc != 0:
+            fail(f"phase 11: {tag}, host {i} exited {rc}:\n{t[-3000:]}")
+    return outs, texts, dt
+
+
+def host_report(text: str) -> dict:
+    """A host's "Data processing time" and kernel launches (the CLI's -v 5
+    debug line) from its stderr."""
+    out = {"processing_s": None, "launches": {}}
+    for ln in text.splitlines():
+        if "Data processing time:" in ln:
+            out["processing_s"] = float(ln.split(":")[-1].split()[0])
+        elif "kernel launches:" in ln:
+            out["launches"] = {k: int(v) for k, v in
+                               (kv.split("=") for kv in ln.split("kernel launches:")[1].split())}
+    return out
+
+
+def counters_text(core) -> str:
+    """The counters of the CLI's final report, as its lines print them."""
+    return (f"total entries: {core.total_reads}\tprefix fail: {core.prefix_fail}"
+            f"\tignored: {core.ignored}\ttoo short: {core.too_short}")
+
+
 def main() -> None:
     try:
         import torch
@@ -1062,6 +1177,7 @@ def main() -> None:
         wfm.sdtw_wavefront.launches_by_warps = dict.fromkeys(wfm.WARPS, 0)
         paf, core, dt = run_port(fa, bl, "cuda", state=state)
         launches = wfm.sdtw_wavefront.launches
+        counts4, dt4 = counters_text(core), dt
         by_warps4 = {w: n for w, n in wfm.sdtw_wavefront.launches_by_warps.items() if n}
         n_lines = len(paf.splitlines())
         print(f"run_dtw on cuda: {core.total_reads} reads, {n_lines} PAF lines, "
@@ -2219,6 +2335,116 @@ def main() -> None:
         }
         print("mesh: " + json.dumps(mesh10) + f"; card: {smi}")
 
+        # ------------------------------------------------------------ 11
+        phase("11 hosts")
+        from sigfish_tpu_torch import cli as tcli
+
+        d11 = os.path.join(work, "hosts")
+        os.makedirs(d11)
+        hosts11 = {}
+
+        def host_run(label, key, argv, want, n_reads, kernels, one):
+            """A HOSTS-process cluster over argv: host 0's -o must be want
+            byte for byte, the peers' -o must not exist, and each host
+            must have launched each of kernels. one: (label, seconds) of
+            the in-process single-device run over the same reads."""
+            outs, texts, dt_ = run_hosts(argv, HOSTS, d11, key)
+            with open(outs[0]) as fh:
+                ok = fh.read() == want
+            reps = [host_report(t) for t in texts]
+            print(f"--hosts {HOSTS} over {label}: {dt_:.3f} s wall (processes started to all "
+                  f"exited), {n_reads / dt_:.1f} reads/s; Data processing time "
+                  + ", ".join(f"host {i} {r['processing_s']:.3f} s" for i, r in enumerate(reps))
+                  + f" ({one[0]}: {one[1]:.3f} s, {n_reads / one[1]:.1f} reads/s); launches by "
+                  f"host {[r['launches'] for r in reps]}; host 0's output byte_identical={ok}; "
+                  f"card: {smi}")
+            if not ok:
+                fail(f"the --hosts {HOSTS} run over {label} differs from the single-device PAF")
+            if any(os.path.exists(o) for o in outs[1:]):
+                fail(f"a peer of the --hosts {HOSTS} run over {label} opened its -o")
+            for i, r in enumerate(reps):
+                for k in kernels:
+                    if r["launches"].get(k, 0) <= 0:
+                        fail(f"host {i} of the --hosts {HOSTS} run over {label} launched no {k} "
+                             f"kernel ({r['launches']})")
+            hosts11[key] = dict(wall_s=dt_, reads_s=n_reads / dt_,
+                                processing_s=[r["processing_s"] for r in reps],
+                                launches=[r["launches"] for r in reps])
+            return texts
+
+        texts11 = host_run("phase 4's workload", "dna", dtw_argv(fa, bl), paf, N_READS,
+                           ("sdtw_wavefront",), ("phase 4's in-process run", dt4))
+        all_line = next((ln for ln in texts11[0].splitlines() if f"(all {HOSTS} hosts)" in ln), "")
+        print(f"host 0: {all_line.strip()}; phase 4: {counts4!r}")
+        if not all_line.endswith(counts4):
+            fail(f"the --hosts {HOSTS} run's counters differ from phase 4's")
+        host_run("phase 7's workload, --host-stages device", "rna_device_stages",
+                 [*dtw_argv(fa7, bl7, rna=True), "--host-stages", "device"], paf7, N7_READS,
+                 ("sdtw_wavefront", "events", "polya_end"),
+                 ("phase 7's in-process run, host stages on the host", dt7))
+
+        # --shard I/2: two processes side by side, no cluster
+        souts = [os.path.join(d11, f"shard{i}.out") for i in range(HOSTS)]
+        rcs, texts, dt11s = run_procs([[*dtw_argv(fa, bl), "--shard", f"{i}/{HOSTS}", "-o", souts[i]]
+                                       for i in range(HOSTS)], d11, "shard")
+        if any(rcs):
+            fail(f"a --shard run exited {rcs}:\n" + "\n---\n".join(t[-2000:] for t in texts))
+        ok = True
+        for i, so in enumerate(souts):
+            with open(so) as fh:
+                ok = ok and fh.read() == stripe(paf, i, HOSTS)
+        reps = [host_report(t) for t in texts]
+        print(f"--shard I/{HOSTS} over phase 4's workload, both stripes side by side: "
+              f"{dt11s:.3f} s wall, {N_READS / dt11s:.1f} reads/s; Data processing time "
+              + ", ".join(f"stripe {i} {r['processing_s']:.3f} s" for i, r in enumerate(reps))
+              + f"; each stripe the phase-4 lines of its records (index = I mod {HOSTS}), "
+              f"in file order: {ok}; card: {smi}")
+        if not ok:
+            fail("a --shard stripe differs from phase 4's lines of its records")
+        hosts11["shard"] = dict(wall_s=dt11s, reads_s=N_READS / dt11s,
+                                processing_s=[r["processing_s"] for r in reps])
+
+        # --trace DIR on phase 4's single-device run, in this process
+        tdir, tout = os.path.join(d11, "trace"), os.path.join(d11, "traced.paf")
+        reset_counts()
+        t0 = time.time()
+        log11 = io.StringIO()
+        with contextlib.redirect_stderr(log11):
+            rc = tcli.main(["dtw", *dtw_argv(fa, bl), "--trace", tdir, "-o", tout])
+        dt11t = time.time() - t0
+        if rc != 0:
+            fail(f"the --trace run exited {rc}:\n{log11.getvalue()[-3000:]}")
+        with open(tout) as fh:
+            ok = fh.read() == paf
+        tpath = tcli.trace_path(tdir, 0)
+        with open(tpath) as fh:
+            events = json.load(fh)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        wf_events = [e for e in kern if "wavefront_kernel" in e.get("name", "")]
+        busy = sum(e.get("dur", 0) for e in kern) / 1e6
+        span = [min(e["ts"] for e in events if "ts" in e), max(e["ts"] + e.get("dur", 0)
+                                                           for e in events if "ts" in e)]
+        span_s = (span[1] - span[0]) / 1e6
+        print(f"--trace over phase 4's workload: {dt11t:.3f} s ({N_READS / dt11t:.1f} reads/s "
+              f"under the profiler; Data processing time "
+              f"{host_report(log11.getvalue())['processing_s']:.3f} s), PAF byte_identical={ok}; {tpath} holds {len(events)} events "
+              f"({os.path.getsize(tpath) / 1e6:.1f} MB), {len(kern)} kernel events, "
+              f"{len(wf_events)} of the wavefront kernel beside sdtw_wavefront.launches "
+              f"{wfm.sdtw_wavefront.launches}; kernels busy {busy:.3f} s of the trace's "
+              f"{span_s:.3f} s; card: {smi}")
+        if not ok:
+            fail("the --trace run's PAF differs from phase 4's")
+        if not wf_events:
+            fail("the trace holds no event of the wavefront kernel")
+        hosts11["trace"] = dict(wall_s=dt11t, wavefront_events=len(wf_events),
+                                wavefront_launches=wfm.sdtw_wavefront.launches,
+                                kernel_busy_s=busy, trace_span_s=span_s)
+        print("hosts: " + json.dumps(hosts11) + f"; card: {smi}")
+        launches11 = {k: {run: sum(r.get(k, 0) for r in hosts11[run]["launches"])
+                          for run in ("dna", "rna_device_stages")}
+                      for k in ("sdtw_wavefront", "sdtw_wavefront_carry", "alu_peak", "events",
+                                "polya_end")}
+
         # the carry entry times the instance phase 6 launched (every launch
         # with start lanes, checked above); the start lanes add B i32 reads
         c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes + 4 * BATCH, issue)
@@ -2229,6 +2455,7 @@ def main() -> None:
                 "source": "sigfish_tpu_torch/csrc/wavefront.cu",
                 "replaces": "sigfish_tpu/ops/sdtw_pallas.py:174",
                 "launches": launches,
+                "launches_hosts": launches11["sdtw_wavefront"],
                 "max_abs_err": max_err,
                 "ms": ms,
                 "plain_ms": plain_ms,
@@ -2260,6 +2487,7 @@ def main() -> None:
                 "source": "sigfish_tpu_torch/csrc/wavefront.cu",
                 "replaces": "sigfish_tpu/ops/sdtw_pallas.py:211",
                 "launches": carry_launches,
+                "launches_hosts": launches11["sdtw_wavefront_carry"],
                 "launches_mesh": n10g["carry"],
                 "max_abs_err": carry_err,
                 "ms": c_ms_sl,
@@ -2285,6 +2513,7 @@ def main() -> None:
                 "source": "sigfish_tpu_torch/csrc/alu_peak.cu",
                 "replaces": "scripts/bench_vpu_peak.py:101",
                 "launches": probe_launches,
+                "launches_hosts": launches11["alu_peak"],
                 "launches_mesh": n10d["alu_peak"] + n10r["alu_peak"] + n10h["alu_peak"]
                 + n10g["alu_peak"],
                 "max_abs_err": probe_err,
@@ -2300,6 +2529,7 @@ def main() -> None:
                 "source": "sigfish_tpu_torch/csrc/events.cu",
                 "replaces": "sigfish_tpu/ops/events_device.py:264",
                 "launches": launches_ev4,
+                "launches_hosts": launches11["events"],
                 "launches_mesh": ev10,
                 "max_abs_err": 0.0,
                 "ms": t4["ms"],
@@ -2327,6 +2557,7 @@ def main() -> None:
                 "source": "sigfish_tpu_torch/csrc/polya.cu",
                 "replaces": "sigfish_tpu/ops/jnn_device.py:89",
                 "launches": launches_pa7,
+                "launches_hosts": launches11["polya_end"],
                 "launches_mesh": pa10,
                 "max_abs_err": 0.0,
                 "ms": p7["ms"],

@@ -1,12 +1,14 @@
 """Command-line interface: `python -m sigfish_tpu_torch.cli dtw|eval`.
 
 The `dtw` option table of sigfish_tpu/cli.py, plus --device, and its
-`eval` subcommand. Every single-device dtw flag is served, with the
-host stages on the host or (--host-stages device) the events and the RNA
-polyA scan on the device, on one device or over a --mesh grid of them; the
-flags of later slices (--trace and the multi-host flags) are accepted and
-raise NotImplementedError naming the ROADMAP.md item that brings them. --accel
-and --engine choose among the JAX package's engines; the port picks its
+`eval` subcommand. Every dtw flag is served: the host stages on the host
+or (--host-stages device) the events and the RNA polyA scan on the
+device, on one device or over a --mesh grid of them, in one process or
+over a cluster of host processes (--hosts/--host-id/--coordinator, each
+mapping a contiguous record range and host 0 writing the merged output;
+parallel/distributed.py) or one record stripe (--shard I/N), and
+--trace DIR writes a torch.profiler trace of the run. --accel and
+--engine choose among the JAX package's engines; the port picks its
 path with --device, so an explicit value of either is an error that
 names --device.
 
@@ -17,13 +19,16 @@ from __future__ import annotations
 
 import argparse
 import faulthandler
+import io
+import os
 import sys
+import tempfile
 
 # SIGSEGV/SIGABRT backtraces (ref: sig_handler main.c:21-40)
 faulthandler.enable()
 
 from . import __version__
-from .utils import cputime, log_error, peakrss, realtime, set_log_level
+from .utils import cputime, log_debug, log_error, peakrss, realtime, set_log_level
 
 
 def _parse_num(s: str) -> int:
@@ -78,13 +83,60 @@ def make_dtw_parser(prog: str = "sigfish_tpu_torch dtw") -> argparse.ArgumentPar
     p.add_argument("--pore", choices=["r9", "r10", "rna004"], default=None, help="pore chemistry [auto]")
     p.add_argument("--ckpt", type=int, default=512, help="reference padding stride [512]")
     p.add_argument("--mesh", default=None, metavar="DPxTP", help="map over a DP x TP grid of devices: the first DP*TP CUDA devices (DP*TP plain-version shards with --device cpu); tracks split over TP and each batch over DP, or, with fewer tracks than TP, the reference split by columns over all DP*TP devices (ring mode)")
-    p.add_argument("--trace", default=None, metavar="DIR", help="write a profiler trace of the run to DIR (not served yet)")
-    p.add_argument("--shard", default=None, metavar="I/N", help="map only record stripe I of N (not served yet)")
-    p.add_argument("--hosts", type=int, default=None, metavar="N", help="number of hosts in the cluster (not served yet)")
-    p.add_argument("--host-id", type=int, default=None, metavar="I", help="this process's id, 0..N-1 (not served yet)")
-    p.add_argument("--coordinator", default=None, metavar="ADDR:PORT", help="host 0's coordination address (not served yet)")
+    p.add_argument("--trace", default=None, metavar="DIR", help="write a torch.profiler trace (Chrome JSON, host<I>.pt.trace.json) of the run to DIR")
+    p.add_argument("--shard", default=None, metavar="I/N", help="map only record stripe I of N (manual multi-host data parallelism; concatenate per-host outputs)")
+    p.add_argument("--hosts", type=int, default=None, metavar="N", help="number of host processes in the cluster [env SIGFISH_HOSTS or 1]")
+    p.add_argument("--host-id", type=int, default=None, metavar="I", help="this process's id, 0..N-1 [env SIGFISH_HOST_ID]")
+    p.add_argument("--coordinator", default=None, metavar="ADDR:PORT", help="host 0's store address (a TCPStore) [env SIGFISH_COORDINATOR]")
     p.add_argument("--device", default="cuda", help="torch device: cuda (the CUDA kernels) or cpu (their plain PyTorch versions) [cuda]")
     return p
+
+
+def kernel_launches() -> dict[str, int]:
+    """Each hand kernel's launch count in this process (its wrapper's
+    counter)."""
+    from .ops import alu_peak, events_device, jnn_device, sdtw_wavefront
+
+    return {
+        "sdtw_wavefront": sdtw_wavefront.sdtw_wavefront.launches,
+        "sdtw_wavefront_carry": sdtw_wavefront.sdtw_wavefront_carry.launches,
+        "alu_peak": alu_peak.alu_peak.launches,
+        "events": events_device.detect_peaks.launches,
+        "polya_end": jnn_device.polya_end.launches,
+    }
+
+
+def trace_path(trace_dir: str, host_id: int) -> str:
+    """Where --trace DIR writes the trace of host host_id (0 without
+    --hosts)."""
+    return os.path.join(trace_dir, f"host{host_id}.pt.trace.json")
+
+
+def run_traced(core, out_fp, trace_dir: str, host_id: int) -> None:
+    """run_dtw under torch.profiler: CPU activity, and CUDA activity
+    (every kernel, the ctypes-launched hand kernels included) when the
+    run's device is CUDA; the Chrome trace goes to trace_path(). A trace
+    that cannot be written raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .runtime.pipeline import run_dtw
+
+    cuda = core.device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    path = trace_path(trace_dir, host_id)
+    try:
+        os.makedirs(trace_dir, exist_ok=True)
+    except OSError as e:
+        raise RuntimeError(f"--trace {trace_dir}: cannot create the directory: {e}") from e
+    with profile(activities=acts) as prof:
+        run_dtw(core, out_fp)
+        if cuda:
+            torch.cuda.synchronize(core.device)
+    try:
+        prof.export_chrome_trace(path)
+    except OSError as e:
+        raise RuntimeError(f"--trace {trace_dir}: cannot write the trace: {e}") from e
 
 
 def dtw_main(argv: list[str]) -> int:
@@ -116,7 +168,7 @@ def dtw_main(argv: list[str]) -> int:
         p.error(f"Number of threads should larger than 0. You entered {args.threads}")
 
     from .output import sam_header
-    from .runtime.pipeline import Core, Options, _later, run_dtw
+    from .runtime.pipeline import Core, Options, run_dtw
 
     for flag, value in (("--accel", args.accel), ("--engine", args.engine)):
         if value is not None:
@@ -125,11 +177,6 @@ def dtw_main(argv: list[str]) -> int:
                 "its path with --device (cuda: the CUDA kernels, cpu: their plain "
                 "PyTorch versions)"
             )
-    if args.trace is not None:
-        raise _later("--trace", "trace")
-    for flag in ("shard", "hosts", "host_id", "coordinator"):
-        if getattr(args, flag) is not None:
-            raise _later("--" + flag.replace("_", "-"), "hosts")
 
     opt = Options(
         batch_size=args.batchsize,
@@ -155,11 +202,96 @@ def dtw_main(argv: list[str]) -> int:
         device=args.device,
     )
     opt.check_slice()  # before -o is opened (and truncated)
-    out_fp = sys.stdout if args.output in (None, "-") else open(args.output, "w")
+    if args.shard:
+        i_s, n_s = args.shard.split("/")
+        opt.shard_id, opt.n_shards = int(i_s), int(n_s)
+        if not (0 <= opt.shard_id < opt.n_shards):
+            p.error(f"--shard {args.shard}: need 0 <= I < N")
+
+    # multi-host cluster (a TCPStore served by host 0); env fallbacks let
+    # launchers set the topology without touching the arg vector
+    n_hosts = args.hosts if args.hosts is not None else int(os.environ.get("SIGFISH_HOSTS", "1"))
+    host_id = args.host_id if args.host_id is not None else int(
+        os.environ.get("SIGFISH_HOST_ID", "0")
+    )
+    coordinator = args.coordinator or os.environ.get("SIGFISH_COORDINATOR")
+    if n_hosts > 1:
+        if opt.n_shards > 1:
+            p.error("--shard (manual striping) and --hosts are exclusive")
+        if not (0 <= host_id < n_hosts):
+            p.error(f"--host-id {host_id}: need 0 <= I < --hosts {n_hosts}")
+        if not coordinator:
+            p.error("--hosts > 1 needs --coordinator ADDR:PORT (or SIGFISH_COORDINATOR)")
+        from .parallel.distributed import init_distributed
+
+        init_distributed(coordinator, n_hosts, host_id)
+
+    # peers (host_id != 0) never write the merged output: do not open
+    # (and truncate) --output on them -- all hosts are typically given
+    # the same path on a shared filesystem, and a peer restarting after
+    # host 0 finished must not wipe the result
+    if args.output in (None, "-"):
+        out_fp = sys.stdout
+    elif n_hosts > 1 and host_id != 0:
+        out_fp = None
+    else:
+        out_fp = open(args.output, "w")
     core = Core(args.genome, args.reads, opt)
-    if opt.sam:
-        out_fp.write(sam_header(core.ref.ref_names, core.ref.ref_lengths, __version__))
-    run_dtw(core, out_fp)
+
+    if n_hosts > 1:
+        # contiguous byte-balanced record range for this host: one index
+        # pass, then seek straight to the range start
+        from .parallel.distributed import compute_host_ranges
+
+        rng = compute_host_ranges(core.sf, n_hosts)[host_id]
+        core.sf.seek_record(rng.file_offset, rng.rec_start)
+        opt.rec_limit = rng.n_records
+        # disk-backed body: a host never holds its full output in RAM
+        # (it is streamed through the gather in bounded chunks)
+        body_raw = tempfile.TemporaryFile("w+b")
+        body_fp = io.TextIOWrapper(body_raw)
+    else:
+        body_fp = out_fp
+        if opt.sam:
+            out_fp.write(sam_header(core.ref.ref_names, core.ref.ref_lengths, __version__))
+
+    if args.trace:
+        run_traced(core, body_fp, args.trace, host_id)
+    else:
+        run_dtw(core, body_fp)
+
+    if n_hosts > 1:
+        # deterministic ordered emission: ranges are contiguous and in
+        # file order, so host-order streaming reproduces the
+        # single-process output byte-for-byte (host 0 writes)
+        from .parallel.distributed import (
+            gather_counters, gather_ordered_stream, shutdown_distributed)
+
+        if host_id == 0 and opt.sam:
+            out_fp.write(sam_header(core.ref.ref_names, core.ref.ref_lengths, __version__))
+        body_fp.flush()
+        gather_ordered_stream(body_raw, out_fp, host_id, n_hosts)
+        totals = gather_counters(
+            {
+                "total_reads": core.total_reads,
+                "prefix_fail": core.prefix_fail,
+                "ignored": core.ignored,
+                "too_short": core.too_short,
+                "sum_bytes": core.sum_bytes,
+            },
+            host_id,
+            n_hosts,
+        )
+        if host_id == 0:
+            out_fp.flush()
+            sys.stderr.write(
+                f"[dtw_main] (all {n_hosts} hosts) total entries: "
+                f"{totals['total_reads']}\tprefix fail: {totals['prefix_fail']}"
+                f"\tignored: {totals['ignored']}\ttoo short: {totals['too_short']}\n"
+            )
+        # exit barrier: host 0's process serves the store, so it waits
+        # until every peer has read its last confirmation
+        shutdown_distributed()
 
     # final report, ref dtw_main.c:331-345 + main.c:98-99
     e = sys.stderr
@@ -181,8 +313,9 @@ def dtw_main(argv: list[str]) -> int:
         f"[main] Real time: {realtime()-realtime0:.3f} sec; CPU time: {cputime():.3f} sec; "
         f"Peak RAM: {peakrss()/1024.0/1024.0/1024.0:.3f} GB\n"
     )
+    log_debug("kernel launches: " + " ".join(f"{k}={v}" for k, v in kernel_launches().items()))
     core.close()
-    if out_fp is not sys.stdout:
+    if out_fp is not None and out_fp is not sys.stdout:
         out_fp.close()
     return 0
 
@@ -230,7 +363,8 @@ def main(argv: list[str] | None = None) -> int:
         log_error(f"{e.strerror}: {e.filename}")
         return 1
     except (ValueError, RuntimeError) as e:
-        # NotImplementedError (an option of a later slice) included
+        # a distributed gather's timeout (a dead peer) or lost host 0
+        # included: the run fails with its diagnosis
         log_error(str(e))
         return 1
 

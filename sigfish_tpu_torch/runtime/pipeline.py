@@ -50,6 +50,11 @@ with fewer in ring mode (the layout split by columns over all DP*TP
 devices, the carry state passed from shard to shard). Everything else,
 and the ring's clipped reads, runs on the grid's first device over the
 mesh's layout.
+
+Across processes (parallel/distributed.py), run_dtw maps one record
+stripe (Options.shard_id of n_shards) or a contiguous range the caller
+seeked to (Options.rec_limit records from there), as the JAX run_dtw
+does.
 """
 
 from __future__ import annotations
@@ -109,20 +114,6 @@ from ..output import paf_line, sam_line
 from ..parallel.shard import make_mesh, ring_shape, ring_topk, shard_streams, shard_tracks, sharded_topk
 from ..utils import log_info, log_verbose, log_warning
 
-# what brings each option that this slice does not serve (ROADMAP.md,
-# queue 1)
-_LATER = {
-    "trace": "item 6 (--trace, a torch.profiler trace)",
-    "hosts": "item 12 (multi-host: --shard, --hosts, --host-id, --coordinator)",
-}
-
-
-def _later(what: str, option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not served by this slice of the PyTorch/CUDA port; "
-        f"ROADMAP.md queue 1 {_LATER[option]} brings it"
-    )
-
 
 @dataclass
 class Options:
@@ -156,6 +147,11 @@ class Options:
     # in segments of about N diagonals
     ref_chunk: int = 0
     device: str = "cuda"
+    shard_id: int = 0   # multi-host record stripe I of N
+    n_shards: int = 1
+    # multi-host contiguous record range: stop after this many records
+    # (the host seeked to its range start via Slow5File.seek_record)
+    rec_limit: int | None = None
 
     def check_slice(self) -> None:
         """Raise SystemExit for an unknown --host-stages, as the JAX
@@ -1512,11 +1508,19 @@ def run_dtw(core: Core, out_fp) -> None:
         core.ignored += stats.ignored
         core.too_short += stats.too_short
         state["counter"] += 1
+        # fault-injection hook (tests only): simulate a host crashing
+        # mid-run after N drained batches -- the distributed peers must
+        # fail fast with a named diagnosis, never hang
+        # (tests/test_torch_distributed.py::test_mid_run_peer_death_fails_fast)
+        die_after = os.environ.get("SIGFISH_TPU_DIE_AFTER_BATCH")
+        if die_after is not None and state["counter"] >= int(die_after):
+            os._exit(9)
 
     drainer = _fut.ThreadPoolExecutor(max_workers=1)  # ordered drains
     drain_fut: _fut.Future | None = None
     pending: PendingBatch | None = None
     done = False
+    consumed = 0
     try:
         while not done:
             if pending is not None and not opt.profile:
@@ -1525,7 +1529,18 @@ def run_dtw(core: Core, out_fp) -> None:
                 drain_fut = drainer.submit(drain, pending)
                 pending = None
             t0 = time.time()
-            blobs = core.sf.read_batch(opt.batch_size, opt.batch_size_bytes)
+            max_recs = opt.batch_size
+            if opt.rec_limit is not None:
+                max_recs = min(max_recs, opt.rec_limit - consumed)
+            blobs = (
+                core.sf.read_batch(
+                    max_recs, opt.batch_size_bytes,
+                    shard_id=opt.shard_id, n_shards=opt.n_shards,
+                )
+                if max_recs > 0
+                else []
+            )
+            consumed += len(blobs)
             core.load_db_time += time.time() - t0
             new_pending = None
             if blobs:

@@ -1,24 +1,21 @@
 """The port's CLI against the reference's `dtw` option table: every flag
-of sigfish_tpu/cli.py parses, and the flags of later slices end with
-exit code 1 and an error naming the ROADMAP.md item that brings them
-(never argparse's usage line and exit code 2). The `eval` command runs
-(tests/test_torch_eval.py holds its bytes to the JAX CLI's).
+of sigfish_tpu/cli.py parses and is served; the multi-host flags'
+validation errors are sigfish_tpu's, text and exit code, and --accel and
+--engine (the JAX package's engine choice) end with exit code 1 and an
+error naming --device. The `eval` command runs (tests/test_torch_eval.py
+holds its bytes to the JAX CLI's).
 """
 
 from __future__ import annotations
 
 import pytest
 
+from sigfish_tpu import cli as jax_cli
 from sigfish_tpu.cli import make_dtw_parser as jax_parser
 from sigfish_tpu_torch import cli
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--shard", "0/2"], "item 12"),
-    (["--hosts", "2"], "item 12"),
-    (["--host-id", "1"], "item 12"),
-    (["--coordinator", "localhost:1234"], "item 12"),
-    (["--trace", "d"], "item 6"),
     (["--engine", "pallas"], "--device"),
     (["--accel", "yes"], "--device"),
 ])
@@ -28,6 +25,54 @@ def test_later_dtw_flags_name_their_item(argv, names, capsys, tmp_path):
     err = capsys.readouterr().err
     assert rc == 1, err
     assert names in err and "usage:" not in err
+
+
+def _error_line(err: str) -> str:
+    """argparse's last line, `PROG: error: TEXT`, without PROG."""
+    return err.strip().splitlines()[-1].split(": error: ", 1)[1]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--shard", "2/2"],
+    ["--shard", "0/2", "--hosts", "2"],
+    ["--hosts", "2"],
+    ["--host-id", "2", "--hosts", "2"],
+    ["--host-id", "-1", "--hosts", "3", "--coordinator", "localhost:1"],
+])
+def test_multi_host_errors_are_the_reference_s(argv, capsys, tmp_path, monkeypatch):
+    """Each invalid --shard/--hosts/--host-id/--coordinator combination
+    is argparse's exit code 2 with sigfish_tpu's text, before any file
+    is opened (the FASTA and the BLOW5 do not exist)."""
+    for var in ("SIGFISH_HOSTS", "SIGFISH_HOST_ID", "SIGFISH_COORDINATOR"):
+        monkeypatch.delenv(var, raising=False)
+    files = [str(tmp_path / "ref.fa"), str(tmp_path / "reads.blow5")]
+    with pytest.raises(SystemExit) as theirs:
+        jax_cli.dtw_main([*files, *argv])
+    want = capsys.readouterr().err
+    with pytest.raises(SystemExit) as ours:
+        cli.main(["dtw", *files, "--device", "cpu", *argv])
+    got = capsys.readouterr().err
+    assert ours.value.code == theirs.value.code == 2
+    assert _error_line(got) == _error_line(want), got
+
+
+def test_trace_over_a_missing_fasta_is_the_reference_s_error(capsys, tmp_path, monkeypatch):
+    """--trace wraps the run only: a missing FASTA is still the
+    reference's one-line file error, exit code 1, and no trace is
+    written."""
+    from port_runs import load_smoke
+
+    monkeypatch.setenv("SIGFISH_TPU_NO_XLA_CACHE", "1")
+    _, bl, _ = load_smoke().make_workload(str(tmp_path), 600, 2, 3)
+    argv = ["dtw", str(tmp_path / "missing.fa"), bl, "--trace", str(tmp_path / "t")]
+    assert jax_cli.main(argv) == 1
+    want = capsys.readouterr().err
+    assert cli.main([*argv, "--device", "cpu"]) == 1
+    got = capsys.readouterr().err
+    line = [ln for ln in got.splitlines() if "ERROR" in ln]
+    assert line == [ln for ln in want.splitlines() if "ERROR" in ln] and len(line) == 1, got
+    assert "No such file or directory" in line[0]
+    assert not (tmp_path / "t" / cli.trace_path("", 0)).exists()
 
 
 def test_eval_names_its_item(capsys, tmp_path):

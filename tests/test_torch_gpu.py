@@ -475,3 +475,51 @@ def test_kernels_on_a_second_card(cuda_device):
     assert _same_bytes(jd.polya_end(*args, 0), jd.polya_end_plain(*args, 0))
     torch.cuda.synchronize(dev)
     assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.gpu
+def test_hosts_on_the_card_vs_cpu(cuda_device, tmp_path):
+    """A 2-host cluster of CLI processes sharing the card, each tracing
+    its run: host 0's PAF is the CPU run's byte for byte, the peer opens
+    no -o, and each host's Chrome trace holds the wavefront kernel's
+    events, one for each of its launches (its -v 5 count)."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    from sigfish_tpu_torch import cli
+
+    smoke = _load_smoke()
+    fa, bl, _ = smoke.make_workload(str(tmp_path), 900, 40, 43)
+    out = tmp_path / "cpu.paf"
+    assert cli.main(["dtw", fa, bl, "--device", "cpu", "-K", "8", "-o", str(out)]) == 0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    trace = tmp_path / "trace"
+    outs = [tmp_path / f"h{i}.paf" for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "sigfish_tpu_torch.cli", "dtw", fa, bl, "-K", "8", "-v", "5",
+         "--hosts", "2", "--host-id", str(i), "--coordinator", f"localhost:{port}",
+         "--trace", str(trace), "-o", str(outs[i])],
+        cwd=repo, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], errs
+    assert outs[0].read_text() == out.read_text() != "" and not outs[1].exists()
+    for i, err in enumerate(errs):
+        line = next(ln for ln in err.splitlines() if "kernel launches:" in ln)
+        launches = int(line.split("sdtw_wavefront=")[1].split()[0])
+        with open(cli.trace_path(str(trace), i)) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and "wavefront_kernel" in e.get("name", "")]
+        assert len(kernels) == launches > 0, (i, len(kernels), launches)

@@ -120,6 +120,7 @@ _MODULES = [
     "sigfish_tpu_torch.ops.sdtw_wavefront",
     "sigfish_tpu_torch.output",
     "sigfish_tpu_torch.parallel",
+    "sigfish_tpu_torch.parallel.distributed",
     "sigfish_tpu_torch.parallel.shard",
     "sigfish_tpu_torch.runtime.pipeline",
     "sigfish_tpu_torch.scripts",

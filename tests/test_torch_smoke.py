@@ -138,3 +138,35 @@ def test_phase10_mesh_workloads(smoke, tmp_path):
     assert n_sub > 1 and Rs % n_sub == 0
     for mesh in (smoke.MESH_DNA, smoke.MESH_RNA):
         assert int(mesh.split("x")[1]) <= 2 <= smoke.N7_TX
+
+
+def test_phase11_hosts_workloads(smoke, tmp_path):
+    """Phase 11's runs are phase 4's and phase 7's: dtw_argv gives the
+    CLI the options run_port passes (-K, -t, -p 50 -q 250; --rna -q 500
+    -p -1), so the cluster's output can be held to those phases' PAFs;
+    and stripe() picks the lines of the records whose index is I mod N,
+    in file order, as `--shard I/N` maps them (a 16-read phase-4
+    workload on the CPU)."""
+    from port_runs import run_port
+
+    from sigfish_tpu_torch import cli
+
+    p = cli.make_dtw_parser()
+    a = p.parse_args(smoke.dtw_argv("r.fa", "r.blow5"))
+    assert (a.genome, a.reads, a.batchsize, a.threads, a.prefix, a.query_size, a.rna) == (
+        "r.fa", "r.blow5", smoke.BATCH, smoke.THREADS, smoke.PREFIX, smoke.W, False)
+    a = p.parse_args(smoke.dtw_argv("t.fa", "t.blow5", rna=True))
+    assert (a.batchsize, a.threads, a.rna, a.query_size, a.prefix) == (
+        smoke.BATCH, smoke.THREADS, True, smoke.RNA_OPT["query_size"],
+        smoke.RNA_OPT["prefix_size"])
+    assert a.device == "cuda" and a.hosts is None and smoke.HOSTS == 2
+    fa, bl, _ = smoke.make_workload(str(tmp_path), 600, 16, smoke.SEED + 11)
+    full, _ = run_port(fa, bl, prefix_size=smoke.PREFIX, query_size=smoke.W)
+    stripes = []
+    for i in range(smoke.HOSTS):
+        out = tmp_path / f"s{i}.paf"
+        assert cli.main(["dtw", fa, bl, "--device", "cpu", "-K", "4", "--shard",
+                         f"{i}/{smoke.HOSTS}", "-o", str(out)]) == 0
+        stripes.append(out.read_text())
+        assert stripes[-1] == smoke.stripe(full, i, smoke.HOSTS) != ""
+    assert sorted("".join(stripes).splitlines()) == sorted(full.splitlines())
