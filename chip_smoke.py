@@ -5,14 +5,15 @@
 
 Run from the root of a checkout, on a machine with one Hopper GPU
 (compute capability 9.0), nvcc and g++. It builds the port's kernels from
-the checkout's sources, then runs eleven phases, and fails (exit code 1,
+the checkout's sources, then runs twelve phases, and fails (exit code 1,
 no result line) if any of them fails:
 
   1. device   CUDA present with capability (9, 0); prints the card's
               name and power limit, torch's CUDA and nvcc's versions,
               and the f32 issue rate every bound is computed at (SMs x
               128 instructions per clock x the maximum SM clock)
-  2. build    the wavefront, ALU-probe, events and polyA kernels (nvcc,
+  2. build    the wavefront, ALU-probe, events, polyA, gap-DTW and
+              banded-DTW kernels (nvcc,
               sm_90a, one process each, started together; ptxas'
               registers and spills of every Q=512 instance, a summary of
               the rest) and
@@ -215,6 +216,20 @@ no result line) if any of them fails:
               beside the launch counter, the kernels' busy seconds beside
               the trace's span). Prints each run's wall seconds, reads/s
               and each host's Data processing time.
+  12. train   the pore-model trainer (sigfish_tpu_torch.models.
+              train_model) on the card: fit_model learns the R9 DNA
+              6-mer table from phase 4's first 256 reads (4 EM
+              iterations, the verbose diagnostic on), fit_model_banded
+              (3) and finetune_inference_matched (2) the R9 RNA 5-mer
+              table from phase 7's first 512 reads, each with a truth
+              PAF of the reads' origins (write_truth_paf). Prints each
+              iteration's E-step device seconds, host seconds and kernel
+              launches, and each table's Pearson correlation with the
+              shipped table the reads were drawn from (not gated); holds
+              the gap and banded kernels bit for bit to their plain
+              versions on iteration 1's cases, times them, and holds the
+              card's tables over the first 16 reads of each (2
+              iterations each) bit for bit to the port's CPU run.
 
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -269,6 +284,22 @@ N10_READS = 512         # the ring's one batch: phase 6's first reads, clipped o
 # processes on the card over phase 4's and phase 7's workloads
 HOSTS = 2
 HOST_TIMEOUT_S = 300    # each phase-11 command's limit, its processes together
+
+# phase 12: the pore-model trainer over phase 4's and phase 7's reads, at
+# full width (k, features, gaps and band unchanged); the iterations cut
+# from fit_model's 20, fit_model_banded's 9 and the finetune's 4
+N12_DNA_READS = 256
+N12_RNA_READS = 512
+ITERS12_DNA = 4
+ITERS12_RNA = 3
+ITERS12_FINETUNE = 2
+N12_CPU_READS = 16      # the card's tables held to the CPU run's over these
+ITERS12_CPU = 2
+# operations a cell of the JAX functions: the gap DP's |x - y|, cumsum
+# add, prev + gl, min, two subtractions, prefix min and two adds; the
+# banded DP's |x - y|, up and left adds, two compares and the add
+GAP_OPS_PER_CELL = 10
+BANDED_OPS_PER_CELL = 7
 
 # workload of phase 8: the rest of the dtw surface
 N8_READS = 1_536        # R10 DNA reads over a phase-4-size reference
@@ -607,6 +638,23 @@ def edge_polya_batch(seed: int, S: int = 8_292):
                         tail=(3_000, 3_001))
     sigs += polya_reads(rng, 37 - len(sigs))
     return _plane(sigs, S, offset=(10.0, 10.0))
+
+
+def contig_of(truth: dict) -> str:
+    """The one contig of make_workload's truth."""
+    return next(iter(truth.values()))[0]
+
+
+def write_truth_paf(path: str, truth: dict, lengths: dict, ids=None) -> None:
+    """A truth PAF of the reads' origins: one primary line a read (ids in
+    their order, or all of truth), with the strand, contig, contig length
+    (lengths[contig]), start and end columns and tp:A:P that eval and the
+    trainer's case loaders read."""
+    with open(path, "w") as f:
+        for rid in truth if ids is None else ids:
+            contig, strand, lo, hi = truth[rid]
+            f.write(f"{rid}\t0\t0\t0\t{strand}\t{contig}\t{lengths[contig]}\t{lo}\t{hi}\t0\t0"
+                    "\t60\ttp:A:P\n")
 
 
 def subset_blow5(bl: str, out: str, keep, header=None) -> None:
@@ -1679,10 +1727,7 @@ def main() -> None:
 
         truth_paf = os.path.join(work, "truth.paf")
         test_paf = os.path.join(work, "phase4.paf")
-        with open(truth_paf, "w") as f:
-            for rid, (contig, strand, lo, hi) in truth.items():
-                f.write(f"{rid}\t0\t0\t0\t{strand}\t{contig}\t{N_BASES}\t{lo}\t{hi}\t0\t0\t60"
-                        "\ttp:A:P\n")
+        write_truth_paf(truth_paf, truth, {contig_of(truth): N_BASES})
         with open(test_paf, "w") as f:
             f.write(paf)
         ev = io.StringIO()
@@ -2445,6 +2490,160 @@ def main() -> None:
                       for k in ("sdtw_wavefront", "sdtw_wavefront_carry", "alu_peak", "events",
                                 "polya_end")}
 
+        # ------------------------------------------------------------ 12
+        phase("12 pore-model trainer")
+        import copy
+
+        from sigfish_tpu_torch.io.fasta import read_fasta
+        from sigfish_tpu_torch.models import train_model as tm
+        from sigfish_tpu_torch.models.pore_model import (
+            MODEL_ID_DNA_R9,
+            MODEL_ID_RNA_R9,
+            load_builtin_model,
+        )
+        from sigfish_tpu_torch.ops import train_dtw as tdm
+
+        d12 = os.path.join(work, "train")
+        os.makedirs(d12)
+        dna_paf, rna_paf = os.path.join(d12, "dna.paf"), os.path.join(d12, "rna.paf")
+        write_truth_paf(dna_paf, truth, {contig_of(truth): N_BASES},
+                        [f"read{i:05d}" for i in range(N12_DNA_READS)])
+        write_truth_paf(rna_paf, truth7, {nm: len(sq) for nm, sq in read_fasta(fa7)},
+                        [f"read{i:05d}" for i in range(N12_RNA_READS)])
+        t0 = time.time()
+        dna_cases = tm.load_cases(bl, fa, dna_paf, rna=False, k=6)
+        rna_cases = tm.load_cases_trimmed_rna(bl7, fa7, rna_paf, k=5)
+        if (len(dna_cases), len(rna_cases)) != (N12_DNA_READS, N12_RNA_READS):
+            fail(f"phase 12 loaded {len(dna_cases)} DNA and {len(rna_cases)} RNA cases, want "
+                 f"{N12_DNA_READS} and {N12_RNA_READS}")
+        # the first reads' cases as loaded, for the card-vs-CPU runs
+        cases16 = [(copy.deepcopy(dna_cases[:N12_CPU_READS]), copy.deepcopy(rna_cases[:N12_CPU_READS]))
+                   for _ in range(2)]
+        print(f"training cases, loaded in {time.time() - t0:.2f} s: {len(dna_cases)} DNA reads "
+              f"({int(np.mean([c.event_mean.size for c in dna_cases]))} events and "
+              f"{int(np.mean([c.kmers.size for c in dna_cases]))} 6-mers a read on average), "
+              f"{len(rna_cases)} RNA reads over {len({c.tid for c in rna_cases})} transcripts "
+              f"({int(np.mean([c.event_mean.size for c in rna_cases]))} trimmed events and "
+              f"{int(np.mean([c.kmers.size for c in rna_cases]))} 5-mers a read)")
+
+        # the trainer's first call of each E-step DP (iteration 1's cases),
+        # recorded as it passes them, for the kernel checks below
+        first12 = {}
+
+        def recorded(key, fn):
+            def call(*a):
+                first12.setdefault(key, a)
+                return fn(*a)
+            return call
+
+        pairs_fns = (tdm.gap_pairs, tdm.banded_pairs)
+        tdm.gap_pairs = recorded("gap", pairs_fns[0])
+        tdm.banded_pairs = recorded("banded", pairs_fns[1])
+        tdm.gap_sdtw.launches = tdm.banded_dtw.launches = 0
+        reset_counts()
+        log12 = io.StringIO()
+        tim12 = {"fit_model": [], "fit_model_banded": [], "finetune": []}
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stderr(log12):
+                dna_model = tm.fit_model(dna_cases, k=6, iters=ITERS12_DNA, device="cuda",
+                                         timings=tim12["fit_model"])
+                rna_lv = tm.fit_model_banded(rna_cases, k=5, iters=ITERS12_RNA, device="cuda",
+                                             timings=tim12["fit_model_banded"])
+                rna_lv = tm.finetune_inference_matched(
+                    rna_lv, tm.inference_windows(rna_cases, fa7), k=5, iters=ITERS12_FINETUNE,
+                    device="cuda", timings=tim12["finetune"])
+        finally:
+            tdm.gap_pairs, tdm.banded_pairs = pairs_fns
+        dt12 = time.time() - t0
+        launches12 = {"gap_sdtw": tdm.gap_sdtw.launches, "banded_dtw": tdm.banded_dtw.launches,
+                      "sdtw_wavefront": wfm.sdtw_wavefront.launches}
+        print("\n".join("  " + ln for ln in log12.getvalue().splitlines()))
+        for stage, recs in tim12.items():
+            for r in recs:
+                print(f"{stage} iter {r['iter']}: {r['seconds']:.3f} s; E-step {r['estep_s']:.4f} s "
+                      f"({r['estep_device_s']:.4f} s on the device, CUDA events), host "
+                      f"{r['seconds'] - r['estep_s']:.3f} s, kernel launches {r['launches']}")
+        print(f"trained on the card in {dt12:.1f} s; kernel launches {launches12}; card: {smi}")
+        if min(launches12.values()) <= 0:
+            fail(f"the trainer's E-steps missed a kernel: launches {launches12}")
+        if not (np.isfinite(dna_model.level_mean).all() and np.isfinite(rna_lv).all()):
+            fail("a trained table holds a value that is not finite")
+        r_dna = np.corrcoef(dna_model.level_mean.astype(np.float64),
+                            load_builtin_model(MODEL_ID_DNA_R9).level_mean.astype(np.float64))[0, 1]
+        r_rna = np.corrcoef(rna_lv, load_builtin_model(MODEL_ID_RNA_R9).level_mean.astype(
+            np.float64))[0, 1]
+        print(f"Pearson r of each trained table with the shipped table its reads were drawn from "
+              f"(not gated): R9 DNA 6-mer {r_dna:.4f}, R9 RNA 5-mer {r_rna:.4f}")
+
+        # each kernel bit for bit against its plain version on the card, on
+        # iteration 1's cases, and timed there
+        rows, cols, gu12, gl12, _ = first12["gap"]
+        x12, n12 = tdm.pack(rows, dev)
+        y12, m12 = tdm.pack(cols, dev)
+        gap_ms = median_ms(lambda: tdm.gap_sdtw(x12, y12, n12, m12, gu12, gl12), 5)
+        got = tdm.gap_sdtw(x12, y12, n12, m12, gu12, gl12)
+        gap_plain_ms, want = once_ms(lambda: tdm.gap_sdtw_plain(x12, y12, n12, m12, gu12, gl12))
+        ok = all(bits_equal(a, b) for a, b in zip(got, want))
+        gap_err = max(abs_err(a.float(), b.float()) for a, b in zip(got, want))
+        gap_cells = int(sum(r.size * c.size for r, c in zip(rows, cols)))
+        gap_bound_ms, gap_bound_by = bound(
+            GAP_OPS_PER_CELL * gap_cells,
+            4 * sum(r.size + c.size for r, c in zip(rows, cols)) + 8 * int(got[4].sum()), issue)
+        print(f"gap_sdtw at iteration 1's batch (B={x12.shape[0]}, N={x12.shape[1]}, "
+              f"M={y12.shape[1]}, {gap_cells} cells, gaps {gu12:.4f}/{gl12:.4f}): {gap_ms:.3f} ms a "
+              f"call (DP and walk), plain {gap_plain_ms:.1f} ms, bound {gap_bound_ms:.4f} ms "
+              f"({gap_bound_by}); end, end cost and paths bitwise_equal={ok} max_abs_err={gap_err}; "
+              f"card: {smi}")
+        if not ok:
+            fail("gap_sdtw's kernel differs from its plain version on iteration 1's cases")
+        evs, lvls, bands, slack = first12["banded"][:4]
+        ev12, nb12 = tdm.pack(evs, dev)
+        lv12, mb12 = tdm.pack(lvls, dev)
+        band12 = torch.tensor(bands, dtype=torch.int32, device=dev)
+        banded_ms = median_ms(lambda: tdm.banded_dtw(ev12, lv12, nb12, mb12, band12, slack), 5)
+        got = tdm.banded_dtw(ev12, lv12, nb12, mb12, band12, slack)
+        banded_plain_ms, want = once_ms(
+            lambda: tdm.banded_dtw_plain(ev12, lv12, nb12, mb12, band12, slack))
+        ok = all(bits_equal(a, b) for a, b in zip(got, want))
+        banded_err = max(abs_err(a.float(), b.float()) for a, b in zip(got, want))
+        banded_cells = 0
+        for e_, l_, b_ in zip(evs, lvls, bands):
+            nn_, mm_, bw_ = e_.size, l_.size, max(b_, slack + 8)
+            c_ = np.arange(1, nn_) * mm_ // nn_
+            banded_cells += int((np.minimum(mm_, c_ + bw_ + 1) - np.maximum(0, c_ - bw_)).sum())
+            banded_cells += min(mm_, bw_ + 1, slack)
+        banded_bound_ms, banded_bound_by = bound(
+            BANDED_OPS_PER_CELL * banded_cells,
+            4 * sum(e_.size + l_.size + 1 for e_, l_ in zip(evs, lvls)) + 8 * int(got[4].sum()),
+            issue)
+        print(f"banded_dtw at iteration 1's batch (B={ev12.shape[0]}, N={ev12.shape[1]}, "
+              f"M={lv12.shape[1]}, {banded_cells} band cells, end_slack {slack}): {banded_ms:.3f} ms "
+              f"a call (DP and walk), plain {banded_plain_ms:.1f} ms, bound {banded_bound_ms:.5f} ms "
+              f"({banded_bound_by}); end cells and paths bitwise_equal={ok} "
+              f"max_abs_err={banded_err}; card: {smi}")
+        if not ok:
+            fail("banded_dtw's kernel differs from its plain version on iteration 1's cases")
+        del x12, y12, ev12, lv12, got, want
+
+        # the card's tables against the port's CPU run over the first reads
+        tabs = {}
+        for dv, (dc, rc) in zip(("cuda", "cpu"), cases16):
+            t0 = time.time()
+            with contextlib.redirect_stderr(io.StringIO()):
+                t_dna = tm.fit_model(dc, k=6, iters=ITERS12_CPU, device=dv).level_mean
+                lv = tm.fit_model_banded(rc, k=5, iters=ITERS12_CPU, device=dv)
+                lv = tm.finetune_inference_matched(lv, tm.inference_windows(rc, fa7), k=5,
+                                                   iters=ITERS12_CPU, device=dv)
+            tabs[dv] = (t_dna, lv, time.time() - t0)
+        ok = (np.array_equal(tabs["cuda"][0], tabs["cpu"][0])
+              and np.array_equal(tabs["cuda"][1], tabs["cpu"][1]))
+        print(f"tables over the first {N12_CPU_READS} reads of each at {ITERS12_CPU} iterations "
+              f"(fit_model, fit_model_banded, finetune), card vs the port's CPU run: "
+              f"bitwise_equal={ok} (card {tabs['cuda'][2]:.1f} s, cpu {tabs['cpu'][2]:.1f} s)")
+        if not ok:
+            fail("the card's trained tables differ from the CPU run's")
+
         # the carry entry times the instance phase 6 launched (every launch
         # with start lanes, checked above); the start lanes add B i32 reads
         c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes + 4 * BATCH, issue)
@@ -2466,6 +2665,7 @@ def main() -> None:
                 "ms_b16": ms16,
                 "launches_rna": launches7,
                 "launches_mesh": n10d["oneshot"] + n10r["oneshot"] + n10h["oneshot"],
+                "launches_train": launches12["sdtw_wavefront"],
                 "ms_q512": ms7,
                 "plain_ms_q512": plain_ms7,
                 "bound_ms_q512": bound7_ms,
@@ -2569,6 +2769,34 @@ def main() -> None:
                 "chain_floor_ms": p7["floor_ms"],
                 "cycles_per_step": p7["cycles_per_step"],
                 "ptxas": ptx_pa,
+            },
+            {
+                "name": "gap_sdtw",
+                "route": "cuda",
+                "source": "sigfish_tpu_torch/csrc/gap_dtw.cu",
+                "replaces": "sigfish_tpu/models/train_model.py:168",
+                "launches": launches12["gap_sdtw"],
+                "max_abs_err": gap_err,
+                "ms": gap_ms,
+                "plain_ms": gap_plain_ms,
+                "bound_ms": gap_bound_ms,
+                "bound_by": gap_bound_by,
+                "library_ms": None,
+                "cells": gap_cells,
+            },
+            {
+                "name": "banded_dtw",
+                "route": "cuda",
+                "source": "sigfish_tpu_torch/csrc/banded_dtw.cu",
+                "replaces": "sigfish_tpu/models/train_model.py:419",
+                "launches": launches12["banded_dtw"],
+                "max_abs_err": banded_err,
+                "ms": banded_ms,
+                "plain_ms": banded_plain_ms,
+                "bound_ms": banded_bound_ms,
+                "bound_by": banded_bound_by,
+                "library_ms": None,
+                "cells": banded_cells,
             },
         ]}
     finally:

@@ -33,7 +33,7 @@ NVCC_FLAGS = [
 ]
 
 # one source csrc/<name>.cu per kernel
-KERNELS = ("wavefront", "alu_peak", "events", "polya")
+KERNELS = ("wavefront", "alu_peak", "events", "polya", "gap_dtw", "banded_dtw")
 
 
 def nvcc_path() -> str:

@@ -523,3 +523,93 @@ def test_hosts_on_the_card_vs_cpu(cuda_device, tmp_path):
         kernels = [e for e in events if e.get("cat") == "kernel"
                    and "wavefront_kernel" in e.get("name", "")]
         assert len(kernels) == launches > 0, (i, len(kernels), launches)
+
+
+def _train_batch(seed, rows, cols, clip):
+    rng = np.random.default_rng(seed)
+    return ([rng.standard_normal(n).astype(np.float32) for n in rows],
+            [np.clip(rng.standard_normal(m), -clip, clip).astype(np.float32) for m in cols])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gaps", [(0.8, 0.3), (0.6, 0.2)])
+def test_gap_dtw_kernel_bitwise_vs_plain(cuda_device, gaps):
+    """csrc/gap_dtw.cu against gap_sdtw_plain on the card: a ragged batch
+    with empty cases, one-row and one-column cases and cases of more rows
+    (700) than the sweep's block has threads (256); end, end cost and the
+    whole padded path buffers equal, the launch counted once."""
+    from sigfish_tpu_torch.ops import train_dtw as td
+
+    rows, cols = _train_batch(11, [700, 0, 1, 37, 300, 5, 256], [900, 12, 40, 0, 280, 1, 257], 3.5)
+    x, n = td.pack(rows, cuda_device)
+    y, m = td.pack(cols, cuda_device)
+    before = td.gap_sdtw.launches
+    got = td.gap_sdtw(x, y, n, m, *gaps)
+    torch.cuda.synchronize()
+    assert td.gap_sdtw.launches == before + 1
+    want = td.gap_sdtw_plain(x, y, n, m, *gaps)
+    assert all(_same_bytes(a, b) for a, b in zip(got, want))
+    assert int(got[4].max()) >= 700
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slack", [60, 7])
+def test_banded_dtw_kernel_bitwise_vs_plain(cuda_device, slack):
+    """csrc/banded_dtw.cu against banded_dtw_plain on the card: 130 cases
+    (five blocks, the last one part full), ragged, empty ones among them, n
+    below, equal to and above m, bands narrower and wider than the
+    matrix; end cells and the whole padded path buffers equal."""
+    from sigfish_tpu_torch.ops import train_dtw as td
+
+    rng = np.random.default_rng(slack)
+    ns = rng.integers(1, 400, 130)
+    ms = np.where(rng.random(130) < 0.5, ns, rng.integers(1, 400, 130))
+    ns[3], ms[9] = 0, 0
+    ns[0] = ms[0] = 760
+    evs, lvls = _train_batch(slack + 1, ns, ms, 4.0)
+    ev, n = td.pack(evs, cuda_device)
+    lvl, m = td.pack(lvls, cuda_device)
+    band = torch.from_numpy((ns // 10).astype(np.int32)).to(cuda_device)
+    band[5] = 1_000
+    before = td.banded_dtw.launches
+    got = td.banded_dtw(ev, lvl, n, m, band, slack)
+    torch.cuda.synchronize()
+    assert td.banded_dtw.launches == before + 1
+    want = td.banded_dtw_plain(ev, lvl, n, m, band, slack)
+    assert all(_same_bytes(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_trainer_on_the_card_vs_cpu(cuda_device, tmp_path):
+    """fit_model (with its diagnostic), fit_model_banded and
+    finetune_inference_matched on the card give the CPU run's tables bit
+    for bit, each E-step through its kernel."""
+    from sigfish_tpu_torch.io.fasta import read_fasta
+    from sigfish_tpu_torch.models import train_model as tm
+    from sigfish_tpu_torch.ops import train_dtw as td
+
+    smoke = _load_smoke()
+    fa, bl, truth = smoke.make_workload(str(tmp_path), 3_000, 10, 13)
+    paf = str(tmp_path / "dna.paf")
+    smoke.write_truth_paf(paf, truth, {smoke.contig_of(truth): 3_000})
+    tables = {}
+    for dev in ("cuda", "cpu"):
+        tables[dev] = tm.fit_model(tm.load_cases(bl, fa, paf, rna=False, k=6), k=6, iters=3,
+                                   verbose=True, device=dev).level_mean
+    assert np.array_equal(tables["cuda"], tables["cpu"])
+    rdir = tmp_path / "rna"
+    rdir.mkdir()
+    fa, bl, truth = smoke.make_rna_workload(str(rdir), 3, 6, 13, tx_len=(250, 450),
+                                            walks=(200, 100))
+    paf = str(rdir / "rna.paf")
+    smoke.write_truth_paf(paf, truth, {name: len(s) for name, s in read_fasta(fa)})
+    launches = (td.banded_dtw.launches, wf.sdtw_wavefront.launches)
+    for dev in ("cuda", "cpu"):
+        cases = tm.load_cases_trimmed_rna(bl, fa, paf, k=5)
+        lv = tm.fit_model_banded(cases, k=5, iters=3, verbose=False, device=dev)
+        tables[dev] = tm.finetune_inference_matched(lv, tm.inference_windows(cases, fa), k=5,
+                                                    iters=2, verbose=False, device=dev)
+        if dev == "cuda":
+            assert (td.banded_dtw.launches - launches[0], wf.sdtw_wavefront.launches
+                    - launches[1]) == (2, 2)
+    assert np.array_equal(tables["cuda"], tables["cpu"])

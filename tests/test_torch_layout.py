@@ -104,8 +104,11 @@ _MODULES = [
     "sigfish_tpu_torch.io.blow5_idx",
     "sigfish_tpu_torch.io.fasta",
     "sigfish_tpu_torch.kernels.build",
+    "sigfish_tpu_torch.models.derive_models",
+    "sigfish_tpu_torch.models.export_tsv",
     "sigfish_tpu_torch.models.genref",
     "sigfish_tpu_torch.models.pore_model",
+    "sigfish_tpu_torch.models.train_model",
     "sigfish_tpu_torch.native",
     "sigfish_tpu_torch.ops.alu_peak",
     "sigfish_tpu_torch.ops.candidates",
@@ -118,6 +121,7 @@ _MODULES = [
     "sigfish_tpu_torch.ops.layout",
     "sigfish_tpu_torch.ops.sdtw_ref",
     "sigfish_tpu_torch.ops.sdtw_wavefront",
+    "sigfish_tpu_torch.ops.train_dtw",
     "sigfish_tpu_torch.output",
     "sigfish_tpu_torch.parallel",
     "sigfish_tpu_torch.parallel.distributed",
@@ -137,7 +141,8 @@ _MODULES = [
 # into build/ and without libdeflate/zstd where their headers are absent)
 _COPIES = [
     "eval.py", "output.py", "io/blow5.py", "io/blow5_idx.py", "io/fasta.py",
-    "models/genref.py", "models/pore_model.py", "ops/candidates.py", "ops/events.py",
+    "models/derive_models.py", "models/export_tsv.py", "models/genref.py",
+    "models/pore_model.py", "ops/candidates.py", "ops/events.py",
     "ops/jnn.py", "ops/sdtw_ref.py", "utils/__init__.py", "utils/log.py", "utils/timers.py",
 ]
 

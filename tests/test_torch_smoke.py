@@ -170,3 +170,46 @@ def test_phase11_hosts_workloads(smoke, tmp_path):
         stripes.append(out.read_text())
         assert stripes[-1] == smoke.stripe(full, i, smoke.HOSTS) != ""
     assert sorted("".join(stripes).splitlines()) == sorted(full.splitlines())
+
+
+def test_phase12_training_workloads(smoke, tmp_path):
+    """Phase 12 trains on phase 4's first 256 and phase 7's first 512
+    reads at 4 (fit_model), 3 (fit_model_banded) and 2 (finetune)
+    iterations, and checks the card against the CPU over 16 reads at 2.
+    Its truth PAFs come from write_truth_paf, whose lines are the ones
+    phase 8 wrote for eval, and the trainer's loaders read them back as
+    the reads' true windows: a DNA read's 6-mers with 10 bases of pad on
+    each side, an RNA read's walk of 5-mers (clipped reads included)."""
+    from sigfish_tpu_torch.io.fasta import read_fasta
+    from sigfish_tpu_torch.models import train_model as tm
+
+    assert (smoke.N12_DNA_READS, smoke.N12_RNA_READS) == (256, 512)
+    assert (smoke.ITERS12_DNA, smoke.ITERS12_RNA, smoke.ITERS12_FINETUNE) == (4, 3, 2)
+    assert (smoke.N12_CPU_READS, smoke.ITERS12_CPU) == (16, 2)
+    assert smoke.N12_DNA_READS <= smoke.N_READS and smoke.N12_RNA_READS <= smoke.N7_READS
+    fa, bl, truth = smoke.make_workload(str(tmp_path), smoke.N_BASES, 12, smoke.SEED)
+    ids = [f"read{i:05d}" for i in range(10)]
+    paf = tmp_path / "dna.paf"
+    smoke.write_truth_paf(str(paf), truth, {smoke.contig_of(truth): smoke.N_BASES}, ids)
+    lines = paf.read_text().splitlines()
+    contig, strand, lo, hi = truth["read00003"]
+    assert lines[3] == (f"read00003\t0\t0\t0\t{strand}\t{contig}\t{smoke.N_BASES}\t{lo}\t{hi}"
+                        "\t0\t0\t60\ttp:A:P")
+    cases = tm.load_cases(bl, fa, str(paf), rna=False, k=6)
+    assert [c.read_id for c in cases] == ids
+    for c in cases:
+        lo, hi = truth[c.read_id][2:]
+        assert c.kmers.size == min(hi + 10, smoke.N_BASES) - max(lo - 10, 0) - 5
+
+    d7 = tmp_path / "rna"
+    d7.mkdir()
+    fa, bl, truth = smoke.make_rna_workload(str(d7), 4, 12, smoke.SEED + 7, tx_len=(600, 900))
+    lengths = {n: len(s) for n, s in read_fasta(fa)}
+    paf = d7 / "rna.paf"
+    smoke.write_truth_paf(str(paf), truth, lengths, ids)
+    cases = tm.load_cases_trimmed_rna(bl, fa, str(paf), k=5)
+    assert [c.read_id for c in cases] == ids
+    for i, c in enumerate(cases):
+        name, _, ts, te = truth[c.read_id]
+        assert c.tid == name and te == lengths[name]
+        assert c.kmers.size == te - ts - 4 == min(te - 4, 240 if i % 10 == 9 else 560)
