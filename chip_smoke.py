@@ -227,7 +227,10 @@ no result line) if any of them fails:
               launches, and each table's Pearson correlation with the
               shipped table the reads were drawn from (not gated); holds
               the gap and banded kernels bit for bit to their plain
-              versions on iteration 1's cases, times them, and holds the
+              versions on iteration 1's cases, times them (one launch a
+              call: each call's ms, SM cycles a step of the largest
+              case, its chain floor and its peak device memory, with
+              the card's name and power limit), and holds the
               card's tables over the first 16 reads of each (2
               iterations each) bit for bit to the port's CPU run.
 
@@ -300,6 +303,13 @@ ITERS12_CPU = 2
 # banded DP's |x - y|, up and left adds, two compares and the add
 GAP_OPS_PER_CELL = 10
 BANDED_OPS_PER_CELL = 7
+# the kernels' chains, in dependent f32 operations a step of the largest
+# case (LAT_F32 cycles each; the shuffles' latency not counted): the gap
+# sweep's lane runs its R rows' s additions in order, then the last row's
+# t, h and col; a banded cell adds up + gap_up, takes two compare-selects
+# and adds |ev - lvl|
+GAP_CHAIN_EXTRA = 3
+BANDED_CHAIN_OPS = 4
 
 # workload of phase 8: the rest of the dtw surface
 N8_READS = 1_536        # R10 DNA reads over a phase-4-size reference
@@ -2577,11 +2587,16 @@ def main() -> None:
               f"(not gated): R9 DNA 6-mer {r_dna:.4f}, R9 RNA 5-mer {r_rna:.4f}")
 
         # each kernel bit for bit against its plain version on the card, on
-        # iteration 1's cases, and timed there
+        # iteration 1's cases, and timed there: a call, its one launch alone
+        # (the sweep, the end and the walk), its peak memory above what was
+        # held before it, the SM cycles a step of the largest case's sweep
+        # (the kernel's clocks) and that chain's floor
+        from sigfish_tpu_torch.scripts import bench_train_dtw as btd
+
         rows, cols, gu12, gl12, _ = first12["gap"]
         x12, n12 = tdm.pack(rows, dev)
         y12, m12 = tdm.pack(cols, dev)
-        gap_ms = median_ms(lambda: tdm.gap_sdtw(x12, y12, n12, m12, gu12, gl12), 5)
+        gap_ms, gap_mb = btd.timed_call(lambda: tdm.gap_sdtw(x12, y12, n12, m12, gu12, gl12), 5)
         got = tdm.gap_sdtw(x12, y12, n12, m12, gu12, gl12)
         gap_plain_ms, want = once_ms(lambda: tdm.gap_sdtw_plain(x12, y12, n12, m12, gu12, gl12))
         ok = all(bits_equal(a, b) for a, b in zip(got, want))
@@ -2590,9 +2605,23 @@ def main() -> None:
         gap_bound_ms, gap_bound_by = bound(
             GAP_OPS_PER_CELL * gap_cells,
             4 * sum(r.size + c.size for r, c in zip(rows, cols)) + 8 * int(got[4].sum()), issue)
+        gap_R = tdm.gap_rows_per_lane(x12.shape[1])
+        gap_W = tdm.case_warps(x12.shape[0], -(-x12.shape[1] // (32 * gap_R)), dev)
+        gap_case_steps = btd.gap_case_steps(n12, m12, gap_R)
+        gap_prof = btd.profile_launch(
+            tdm._library("gap_dtw").sf_gap_dtw,
+            lambda ck: tdm._gap_args(x12, y12, n12, m12, gu12, gl12, ck), gap_case_steps, 5,
+            "gap_sdtw")
+        gap_steps = int(gap_case_steps.max())
+        gap_floor_ms = gap_steps * (gap_R + GAP_CHAIN_EXTRA) * LAT_F32 / (clk_max * 1e3)
         print(f"gap_sdtw at iteration 1's batch (B={x12.shape[0]}, N={x12.shape[1]}, "
-              f"M={y12.shape[1]}, {gap_cells} cells, gaps {gu12:.4f}/{gl12:.4f}): {gap_ms:.3f} ms a "
-              f"call (DP and walk), plain {gap_plain_ms:.1f} ms, bound {gap_bound_ms:.4f} ms "
+              f"M={y12.shape[1]}, {gap_cells} cells, gaps {gu12:.4f}/{gl12:.4f}): {gap_ms:.4f} "
+              f"ms a call, one launch (sweep, end and walk) {gap_prof['launch_ms']:.4f} ms; "
+              f"{gap_R} rows a lane, {gap_W} warps a case; the largest case's sweep {gap_steps} "
+              f"steps at {gap_prof['cycles_per_step_largest']:.1f} SM cycles a step, its walk "
+              f"{gap_prof['walk_cycles_max']} cycles; chain floor {gap_floor_ms:.4f} ms "
+              f"({gap_R + GAP_CHAIN_EXTRA} dependent f32 operations a step); peak memory "
+              f"{gap_mb:.1f} MB a call; plain {gap_plain_ms:.1f} ms, bound {gap_bound_ms:.4f} ms "
               f"({gap_bound_by}); end, end cost and paths bitwise_equal={ok} max_abs_err={gap_err}; "
               f"card: {smi}")
         if not ok:
@@ -2601,7 +2630,8 @@ def main() -> None:
         ev12, nb12 = tdm.pack(evs, dev)
         lv12, mb12 = tdm.pack(lvls, dev)
         band12 = torch.tensor(bands, dtype=torch.int32, device=dev)
-        banded_ms = median_ms(lambda: tdm.banded_dtw(ev12, lv12, nb12, mb12, band12, slack), 5)
+        banded_ms, banded_mb = btd.timed_call(
+            lambda: tdm.banded_dtw(ev12, lv12, nb12, mb12, band12, slack), 5)
         got = tdm.banded_dtw(ev12, lv12, nb12, mb12, band12, slack)
         banded_plain_ms, want = once_ms(
             lambda: tdm.banded_dtw_plain(ev12, lv12, nb12, mb12, band12, slack))
@@ -2617,9 +2647,23 @@ def main() -> None:
             BANDED_OPS_PER_CELL * banded_cells,
             4 * sum(e_.size + l_.size + 1 for e_, l_ in zip(evs, lvls)) + 8 * int(got[4].sum()),
             issue)
+        banded_case_steps = btd.banded_case_steps(nb12, mb12, band12, slack)
+        banded_W = tdm.case_warps(ev12.shape[0], -(-ev12.shape[1] // 32), dev)
+        banded_prof = btd.profile_launch(
+            tdm._library("banded_dtw").sf_banded_dtw,
+            lambda ck: tdm._banded_args(ev12, lv12, nb12, mb12, band12, slack, 0.5, 0.25, ck),
+            banded_case_steps, 5, "banded_dtw")
+        banded_steps = int(banded_case_steps.max())
+        banded_floor_ms = banded_steps * BANDED_CHAIN_OPS * LAT_F32 / (clk_max * 1e3)
         print(f"banded_dtw at iteration 1's batch (B={ev12.shape[0]}, N={ev12.shape[1]}, "
-              f"M={lv12.shape[1]}, {banded_cells} band cells, end_slack {slack}): {banded_ms:.3f} ms "
-              f"a call (DP and walk), plain {banded_plain_ms:.1f} ms, bound {banded_bound_ms:.5f} ms "
+              f"M={lv12.shape[1]}, {banded_cells} band cells, end_slack {slack}): "
+              f"{banded_ms:.4f} ms a call, one launch (sweep, end and walk) "
+              f"{banded_prof['launch_ms']:.4f} ms, {banded_W} warps a case; the largest case's "
+              f"sweep {banded_steps} steps at {banded_prof['cycles_per_step_largest']:.1f} SM "
+              f"cycles a step, its walk "
+              f"{banded_prof['walk_cycles_max']} cycles; chain floor {banded_floor_ms:.4f} ms "
+              f"({BANDED_CHAIN_OPS} dependent f32 operations a step); peak memory {banded_mb:.1f} "
+              f"MB a call; plain {banded_plain_ms:.1f} ms, bound {banded_bound_ms:.5f} ms "
               f"({banded_bound_by}); end cells and paths bitwise_equal={ok} "
               f"max_abs_err={banded_err}; card: {smi}")
         if not ok:
@@ -2783,6 +2827,14 @@ def main() -> None:
                 "bound_by": gap_bound_by,
                 "library_ms": None,
                 "cells": gap_cells,
+                "launch_ms": {"gap_kernel": gap_prof["launch_ms"]},
+                "peak_mb": gap_mb,
+                "rows_per_lane": gap_R,
+                "warps": gap_W,
+                "steps": gap_steps,
+                "cycles_per_step": gap_prof["cycles_per_step_largest"],
+                "walk_cycles": gap_prof["walk_cycles_max"],
+                "chain_floor_ms": gap_floor_ms,
             },
             {
                 "name": "banded_dtw",
@@ -2797,6 +2849,13 @@ def main() -> None:
                 "bound_by": banded_bound_by,
                 "library_ms": None,
                 "cells": banded_cells,
+                "launch_ms": {"banded_kernel": banded_prof["launch_ms"]},
+                "peak_mb": banded_mb,
+                "warps": banded_W,
+                "steps": banded_steps,
+                "cycles_per_step": banded_prof["cycles_per_step_largest"],
+                "walk_cycles": banded_prof["walk_cycles_max"],
+                "chain_floor_ms": banded_floor_ms,
             },
         ]}
     finally:

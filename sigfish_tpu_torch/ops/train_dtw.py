@@ -35,8 +35,11 @@ kernels and the plain versions agree with the JAX functions bit for bit:
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel (counted in gap_sdtw.launches, banded_dtw.launches)
-or raises. The plain versions run on whatever device their inputs lie
-on, so the card can hold its kernels to them on the same inputs.
+or raises. A kernel is one launch (the sweep, the end and the walk) and
+keeps no (B, N, M) matrix: the gap kernel stores 2 bits a cell of the
+walk's choices, the banded one 2 bits a swept cell of pointers. The
+plain versions run on whatever device their inputs lie on, so the card
+can hold its kernels to them on the same inputs.
 """
 
 from __future__ import annotations
@@ -48,9 +51,30 @@ import torch
 
 BIGF = 3e37  # the banded DP's out-of-band cost
 EMPTY = -1   # end and path entries of an empty case, and past a path's end
+GAP_RUNS = (1, 2, 4, 8)  # rows a lane of the gap kernel's instances
 
 
-def _check(fn: str, x, y, n, m):
+def gap_rows_per_lane(N: int) -> int:
+    """The gap kernel's rows a lane for a batch of N padded rows: the
+    instance whose stripes (32 lanes' runs) take the fewest SM cycles at
+    ~35 a row and ~190 a step, one warp's cost as scripts/bench_train_dtw
+    measured it on an H100 at N=689 (4, 8 and 16 rows a lane; 16 spilled
+    registers and lost to 8 at every warp count, so no instance has it)."""
+    return min(GAP_RUNS, key=lambda r: (-(-max(N, 1) // (32 * r))) * (35 * r + 190))
+
+
+def case_warps(B: int, stripes: int, device) -> int:
+    """Warps a case (1 to 4, at most its stripes): the stripes of a case
+    run as a pipeline over them, and about two warps a scheduler (eight an
+    SM) hide each other's latency."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(4, stripes, -(-8 * sms // max(B, 1))))
+
+
+def _check(fn: str, x, y, n, m, *more) -> list[np.ndarray]:
+    """Raise on inputs the wrappers do not take. Returns the lengths n, m
+    and the (B,) int32 tensors more as numpy arrays, brought to the host
+    in one copy."""
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise TypeError(f"{fn}: rows and columns must be float32")
     if x.dim() != 2 or y.dim() != 2 or x.shape[0] != y.shape[0]:
@@ -62,10 +86,11 @@ def _check(fn: str, x, y, n, m):
             raise ValueError(f"{fn}: {name} must be int32 ({B},)")
     if len({x.device, y.device, n.device, m.device}) != 1:
         raise ValueError(f"{fn}: inputs on several devices")
-    if B:
-        n_lo, n_hi, m_lo, m_hi = torch.stack([n.min(), n.max(), m.min(), m.max()]).tolist()
-        if n_lo < 0 or n_hi > x.shape[1] or m_lo < 0 or m_hi > y.shape[1]:
-            raise ValueError(f"{fn}: lengths outside [0, {x.shape[1]}] x [0, {y.shape[1]}]")
+    host = torch.stack([n, m, *more]).cpu().numpy()
+    if B and (host[0].min() < 0 or host[0].max() > x.shape[1] or host[1].min() < 0
+              or host[1].max() > y.shape[1]):
+        raise ValueError(f"{fn}: lengths outside [0, {x.shape[1]}] x [0, {y.shape[1]}]")
+    return list(host)
 
 
 def pack(rows: list[np.ndarray], device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -167,6 +192,40 @@ def gap_sdtw_plain(x, y, n, m, gap_up: float, gap_left: float):
     return end.to(torch.int32), end_cost, px, py, plen
 
 
+def _gap_args(x, y, n, m, gap_up: float, gap_left: float, clocks=None):
+    """sf_gap_dtw's arguments but the stream, its outputs (end, end_cost,
+    px, py, plen) and the buffers the arguments point into, allocated on
+    x's device; clocks: None or a (B, 4) int64 tensor there."""
+    B, N = x.shape
+    M = y.shape[1]
+    x, y = x.contiguous(), y.contiguous()
+    dev = x.device
+    R = gap_rows_per_lane(N)
+    stripes = -(-N // (32 * R))
+    warps = case_warps(B, stripes, dev)
+    # a stripe's choice words, R * 2 bits a step, go 8 bytes (a pack of
+    # steps) at a time
+    pack = 8 // _GAP_WORD_BYTES[R]
+    case_words = stripes * -(-(M + 31) // pack) * 32
+    words = torch.empty(B * case_words, dtype=torch.int64, device=dev)
+    buf_floats = M + (warps + 1) * 3 * M + 96 * warps
+    scratch = _scratch(B, buf_floats, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    end, plen = torch.empty(B, **i32), torch.empty(B, **i32)
+    end_cost = torch.empty(B, dtype=torch.float32, device=dev)
+    px, py = torch.empty((B, N + M), **i32), torch.empty((B, N + M), **i32)
+    args = (x.data_ptr(), y.data_ptr(), n.data_ptr(), m.data_ptr(), B, N, M, gap_up, gap_left, R,
+            warps, case_words, words.data_ptr(), buf_floats, _ptr(scratch), end.data_ptr(),
+            end_cost.data_ptr(), px.data_ptr(), py.data_ptr(), plen.data_ptr(), _ptr(clocks))
+    return args, (end, end_cost, px, py, plen), (x, y, words, scratch)
+
+
+def _run(entry, args, stream, what: str) -> None:
+    err = entry(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
+
+
 def gap_sdtw(x, y, n, m, gap_up: float, gap_left: float):
     """Gap-penalised subsequence DTW of each case's rows x[b, :n[b]]
     against its columns y[b, :m[b]] with f32(gap_up) on up moves and
@@ -181,29 +240,12 @@ def gap_sdtw(x, y, n, m, gap_up: float, gap_left: float):
         return gap_sdtw_plain(x, y, n, m, gap_up, gap_left)
     if x.device.type != "cuda":
         raise ValueError(f"gap_sdtw: unsupported device {x.device}")
-    B, N = x.shape
-    M = y.shape[1]
     lib = _library("gap_dtw")
-    x, y = x.contiguous(), y.contiguous()
-    dev = x.device
-    cost = torch.empty(B * N * M, dtype=torch.float32, device=dev)
-    end = torch.empty(B, dtype=torch.int32, device=dev)
-    end_cost = torch.empty(B, dtype=torch.float32, device=dev)
-    px = torch.full((B, N + M), EMPTY, dtype=torch.int32, device=dev)
-    py = torch.full((B, N + M), EMPTY, dtype=torch.int32, device=dev)
-    plen = torch.empty(B, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sf_gap_dtw(x.data_ptr(), y.data_ptr(), n.data_ptr(), m.data_ptr(), B, N, M,
-                             gap_up, gap_left, cost.data_ptr(), stream)
-        if err == 0:
-            err = lib.sf_gap_path(cost.data_ptr(), n.data_ptr(), m.data_ptr(), B, N, M, gap_up,
-                                  gap_left, end.data_ptr(), end_cost.data_ptr(), px.data_ptr(),
-                                  py.data_ptr(), plen.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"gap_sdtw: CUDA launch failed (cudaError {err})")
+    with torch.cuda.device(x.device):
+        args, out, _ = _gap_args(x, y, n, m, gap_up, gap_left)
+        _run(lib.sf_gap_dtw, args, torch.cuda.current_stream(x.device).cuda_stream, "gap_sdtw")
     gap_sdtw.launches += 1
-    return end, end_cost, px, py, plen
+    return out
 
 
 gap_sdtw.launches = 0
@@ -284,6 +326,48 @@ def banded_dtw_plain(ev, lvl, n, m, band, end_slack: int, gap_up: float = 0.5,
     return ei.to(torch.int32), ej.to(torch.int32), px, py, plen
 
 
+def _banded_sizes(n: np.ndarray, m: np.ndarray, band: np.ndarray,
+                  end_slack: int) -> tuple[int, int]:
+    """From the host's lengths and bands: the most pointer words a case
+    needs (ceil(n / 32) stripes of at most min(m, 2 bw + 2 + 31 m // n) +
+    31 steps, a word a step) and the widest half band bw."""
+    if not n.size:
+        return 1, 0
+    n64, m64 = n.astype(np.int64), m.astype(np.int64)
+    bw = np.maximum(band.astype(np.int64), end_slack + 8)
+    steps = np.minimum(m64, 2 * bw + 2 + 31 * m64 // np.maximum(n64, 1)) + 31
+    need = np.where((n64 > 0) & (m64 > 0), (n64 + 31) // 32 * steps, 0)
+    return max(int(need.max()), 1), int(bw.max())
+
+
+def _banded_args(ev, lvl, n, m, band, end_slack: int, gap_up: float, gap_left: float,
+                 clocks=None, sizes=None):
+    """sf_banded_dtw's arguments but the stream, its outputs (end_i,
+    end_j, px, py, plen) and the buffers the arguments point into,
+    allocated on ev's device; clocks: None or a (B, 4) int64 tensor
+    there; sizes: _banded_sizes' values, found here if None."""
+    B, N = ev.shape
+    M = lvl.shape[1]
+    ev, lvl = ev.contiguous(), lvl.contiguous()
+    dev = ev.device
+    if sizes is None:
+        sizes = _banded_sizes(*[t.cpu().numpy() for t in (n, m, band)], end_slack)
+    case_words, bw_max = sizes
+    row_cap = min(M, 2 * bw_max + 1)
+    warps = case_warps(B, -(-N // 32), dev)
+    smem_floats = M + (warps + 1) * row_cap + min(end_slack, M) + min(end_slack, N)
+    words = torch.empty(B * case_words * 2, dtype=torch.int32, device=dev)
+    scratch = _scratch(B, smem_floats, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ei, ej, plen = torch.empty(B, **i32), torch.empty(B, **i32), torch.empty(B, **i32)
+    px, py = torch.empty((B, N + M), **i32), torch.empty((B, N + M), **i32)
+    args = (ev.data_ptr(), lvl.data_ptr(), n.data_ptr(), m.data_ptr(), band.data_ptr(), B, N, M,
+            end_slack, gap_up, gap_left, warps, case_words, words.data_ptr(), row_cap, smem_floats,
+            _ptr(scratch), ei.data_ptr(), ej.data_ptr(), px.data_ptr(), py.data_ptr(),
+            plen.data_ptr(), _ptr(clocks))
+    return args, (ei, ej, px, py, plen), (ev, lvl, words, scratch)
+
+
 def banded_dtw(ev, lvl, n, m, band, end_slack: int, gap_up: float = 0.5, gap_left: float = 0.25):
     """Banded, end-anchored DTW of each case's events ev[b, :n[b]] (rows)
     against its levels lvl[b, :m[b]] (columns): row i's band is
@@ -295,40 +379,26 @@ def banded_dtw(ev, lvl, n, m, band, end_slack: int, gap_up: float = 0.5, gap_lef
     order, plen (B,) int32); an empty case has end -1 and no path. CPU
     tensors run banded_dtw_plain; CUDA tensors launch csrc/banded_dtw.cu
     (counted in banded_dtw.launches) or raise."""
-    _check("banded_dtw", ev, lvl, n, m)
-    B = ev.shape[0]
+    B = ev.shape[0] if ev.dim() else 0
     if band.dtype != torch.int32 or tuple(band.shape) != (B,) or band.device != ev.device:
         raise ValueError(f"banded_dtw: band must be int32 ({B},) on {ev.device}")
     if end_slack < 1:
         raise ValueError(f"banded_dtw: end_slack {end_slack} < 1 leaves no end candidate")
     if ev.device.type == "cpu":
+        _check("banded_dtw", ev, lvl, n, m)
         return banded_dtw_plain(ev, lvl, n, m, band, end_slack, gap_up, gap_left)
     if ev.device.type != "cuda":
         raise ValueError(f"banded_dtw: unsupported device {ev.device}")
-    N, M = ev.shape[1], lvl.shape[1]
+    # the buffers' sizes from the lengths and bands the check brings over
+    sizes = _banded_sizes(*_check("banded_dtw", ev, lvl, n, m, band), end_slack)
     lib = _library("banded_dtw")
-    ev, lvl = ev.contiguous(), lvl.contiguous()
-    dev = ev.device
-    cost = torch.full((B * N * M,), BIGF, dtype=torch.float32, device=dev)
-    ptr = torch.zeros(B * N * M, dtype=torch.int8, device=dev)
-    ei = torch.empty(B, dtype=torch.int32, device=dev)
-    ej = torch.empty(B, dtype=torch.int32, device=dev)
-    px = torch.full((B, N + M), EMPTY, dtype=torch.int32, device=dev)
-    py = torch.full((B, N + M), EMPTY, dtype=torch.int32, device=dev)
-    plen = torch.empty(B, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sf_banded_dtw(ev.data_ptr(), lvl.data_ptr(), n.data_ptr(), m.data_ptr(),
-                                band.data_ptr(), B, N, M, end_slack, gap_up, gap_left,
-                                cost.data_ptr(), ptr.data_ptr(), stream)
-        if err == 0:
-            err = lib.sf_banded_path(cost.data_ptr(), ptr.data_ptr(), n.data_ptr(), m.data_ptr(),
-                                     B, N, M, end_slack, ei.data_ptr(), ej.data_ptr(),
-                                     px.data_ptr(), py.data_ptr(), plen.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"banded_dtw: CUDA launch failed (cudaError {err})")
+    with torch.cuda.device(ev.device):
+        args, out, _ = _banded_args(ev, lvl, n, m, band, end_slack, gap_up, gap_left,
+                                    sizes=sizes)
+        _run(lib.sf_banded_dtw, args, torch.cuda.current_stream(ev.device).cuda_stream,
+             "banded_dtw")
     banded_dtw.launches += 1
-    return ei, ej, px, py, plen
+    return out
 
 
 banded_dtw.launches = 0
@@ -355,7 +425,40 @@ def banded_pairs(evs: list[np.ndarray], lvls: list[np.ndarray], bands: list[int]
     return host_paths(*banded_dtw(ev, lvl, n, m, band, end_slack)[2:])
 
 
+# the per-case buffers of a kernel (the case's columns, its stripes'
+# boundary rows, the end candidates) live in shared memory up to this many
+# bytes a case, else in a device scratch the wrapper allocates
+SMEM_CASE_BYTES = 200 * 1024
+_GAP_WORD_BYTES = {1: 1, 2: 1, 4: 1, 8: 2}
+
+
+def _scratch(B: int, floats: int, dev):
+    """None where a case's floats fit SMEM_CASE_BYTES of shared memory,
+    else a (B * floats) f32 device buffer."""
+    if 4 * floats <= SMEM_CASE_BYTES:
+        return None
+    return torch.empty(B * floats, dtype=torch.float32, device=dev)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def _declare(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """lib with its C entry's argument types declared."""
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    if name == "gap_dtw":
+        lib.sf_gap_dtw.argtypes = [p, p, p, p, i, i, i, f, f, i, i, ll, p, i, p, p, p, p, p, p,
+                                   p, p]
+        lib.sf_gap_dtw.restype = ctypes.c_int
+    else:
+        lib.sf_banded_dtw.argtypes = [p, p, p, p, p, i, i, i, i, f, f, i, ll, p, i, i, p, p, p,
+                                      p, p, p, p, p]
+        lib.sf_banded_dtw.restype = ctypes.c_int
+    return lib
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -363,15 +466,5 @@ def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         from ..kernels.build import load_library
 
-        lib = load_library(name)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "gap_dtw":
-            lib.sf_gap_dtw.argtypes = [p, p, p, p, i, i, i, f, f, p, p]
-            lib.sf_gap_path.argtypes = [p, p, p, i, i, i, f, f, p, p, p, p, p, p]
-            lib.sf_gap_dtw.restype = lib.sf_gap_path.restype = ctypes.c_int
-        else:
-            lib.sf_banded_dtw.argtypes = [p, p, p, p, p, i, i, i, i, f, f, p, p, p]
-            lib.sf_banded_path.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p]
-            lib.sf_banded_dtw.restype = lib.sf_banded_path.restype = ctypes.c_int
-        _libs[name] = lib
+        _libs[name] = _declare(load_library(name), name)
     return _libs[name]

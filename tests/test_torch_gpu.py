@@ -525,22 +525,42 @@ def test_hosts_on_the_card_vs_cpu(cuda_device, tmp_path):
         assert len(kernels) == launches > 0, (i, len(kernels), launches)
 
 
-def _train_batch(seed, rows, cols, clip):
+def _train_batch(seed, rows, cols, clip, ints=False):
+    """Ragged f32 rows and columns from a seed: normals (the columns
+    clipped), or with ints values from {0, 1, 2}, on which the DPs' moves
+    and end candidates tie often."""
     rng = np.random.default_rng(seed)
+    if ints:
+        return ([rng.integers(0, 3, n).astype(np.float32) for n in rows],
+                [rng.integers(0, 3, m).astype(np.float32) for m in cols])
     return ([rng.standard_normal(n).astype(np.float32) for n in rows],
             [np.clip(rng.standard_normal(m), -clip, clip).astype(np.float32) for m in cols])
 
 
+# (rows, columns, ints) of each gap batch: ragged with empty, one-row and
+# one-column cases and rows past one stripe; tie-heavy; cases longer than
+# a warp's registers hold (several stripes of the largest instance); B=1;
+# B=37, a multiple of no per-block case count
+GAP_BATCHES = {
+    "ragged": ([700, 0, 1, 37, 300, 5, 256], [900, 12, 40, 0, 280, 1, 257], False),
+    "ties": ([700, 1, 37, 300, 64, 65], [900, 40, 33, 280, 64, 2], True),
+    "long": ([2_500, 2_500, 700], [3_000, 1_200, 3_000], False),
+    "one": ([689], [906], False),
+    "odd": (list(range(5, 5 + 37 * 19, 19)), list(range(900, 900 - 37 * 23, -23)), True),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("gaps", [(0.8, 0.3), (0.6, 0.2)])
-def test_gap_dtw_kernel_bitwise_vs_plain(cuda_device, gaps):
-    """csrc/gap_dtw.cu against gap_sdtw_plain on the card: a ragged batch
-    with empty cases, one-row and one-column cases and cases of more rows
-    (700) than the sweep's block has threads (256); end, end cost and the
-    whole padded path buffers equal, the launch counted once."""
+@pytest.mark.parametrize("batch", list(GAP_BATCHES))
+@pytest.mark.parametrize("gaps", [(0.8, 0.3), (0.6, 0.2), (0.5, 0.25)])
+def test_gap_dtw_kernel_bitwise_vs_plain(cuda_device, gaps, batch):
+    """csrc/gap_dtw.cu against gap_sdtw_plain on the card over each of
+    GAP_BATCHES: end, end cost and the whole padded path buffers equal,
+    the launch counted once."""
     from sigfish_tpu_torch.ops import train_dtw as td
 
-    rows, cols = _train_batch(11, [700, 0, 1, 37, 300, 5, 256], [900, 12, 40, 0, 280, 1, 257], 3.5)
+    rows_n, cols_m, ints = GAP_BATCHES[batch]
+    rows, cols = _train_batch(11, rows_n, cols_m, 3.5, ints)
     x, n = td.pack(rows, cuda_device)
     y, m = td.pack(cols, cuda_device)
     before = td.gap_sdtw.launches
@@ -549,34 +569,100 @@ def test_gap_dtw_kernel_bitwise_vs_plain(cuda_device, gaps):
     assert td.gap_sdtw.launches == before + 1
     want = td.gap_sdtw_plain(x, y, n, m, *gaps)
     assert all(_same_bytes(a, b) for a, b in zip(got, want))
-    assert int(got[4].max()) >= 700
+    assert int(got[4].max()) >= max(rows_n)
+
+
+def _banded_batch(kind, slack):
+    """(ns, ms, bands, ints) of a banded batch: 130 ragged cases with
+    empty ones, n below, equal to and above m, bands narrower and wider
+    than the matrix; the same tie-heavy; one case 2,000 x 2,000 with band
+    200 beside shorter ones; rows whose bands do not overlap (m / n past
+    2 * (end_slack + 8) + 1) and tall cases (n >= 4m); B=1; B=37."""
+    rng = np.random.default_rng(slack)
+    if kind in ("ragged", "ties"):
+        ns = rng.integers(1, 400, 130)
+        ms = np.where(rng.random(130) < 0.5, ns, rng.integers(1, 400, 130))
+        ns[3], ms[9] = 0, 0
+        ns[0] = ms[0] = 760
+        bands = ns // 10
+        bands[5] = 1_000
+        return ns, ms, bands, kind == "ties"
+    if kind == "long":
+        return (np.array([2_000, 1_500, 40]), np.array([2_000, 2_100, 90]),
+                np.array([200, 20, 1]), False)
+    if kind == "nonoverlap":
+        ns = np.array([5, 9, 12, 3, 2_000, 1_200, 800])
+        ms = np.array([5 * 150, 9 * 140, 12 * 130, 3 * 400, 400, 300, 150])
+        return ns, ms, np.array([1, 2, 1, 2, 2, 1, 2]), True
+    if kind == "one":
+        return np.array([806]), np.array([806]), np.array([80]), False
+    ns = rng.integers(1, 900, 37)
+    return ns, rng.integers(1, 900, 37), ns // 10, True
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ragged", "ties", "long", "nonoverlap", "one", "odd"])
 @pytest.mark.parametrize("slack", [60, 7])
-def test_banded_dtw_kernel_bitwise_vs_plain(cuda_device, slack):
-    """csrc/banded_dtw.cu against banded_dtw_plain on the card: 130 cases
-    (five blocks, the last one part full), ragged, empty ones among them, n
-    below, equal to and above m, bands narrower and wider than the
-    matrix; end cells and the whole padded path buffers equal."""
+def test_banded_dtw_kernel_bitwise_vs_plain(cuda_device, slack, kind):
+    """csrc/banded_dtw.cu against banded_dtw_plain on the card over each
+    of _banded_batch's batches: end cells and the whole padded path
+    buffers equal, the launch counted once."""
     from sigfish_tpu_torch.ops import train_dtw as td
 
-    rng = np.random.default_rng(slack)
-    ns = rng.integers(1, 400, 130)
-    ms = np.where(rng.random(130) < 0.5, ns, rng.integers(1, 400, 130))
-    ns[3], ms[9] = 0, 0
-    ns[0] = ms[0] = 760
-    evs, lvls = _train_batch(slack + 1, ns, ms, 4.0)
+    ns, ms, bands, ints = _banded_batch(kind, slack)
+    evs, lvls = _train_batch(slack + 1, ns, ms, 4.0, ints)
     ev, n = td.pack(evs, cuda_device)
     lvl, m = td.pack(lvls, cuda_device)
-    band = torch.from_numpy((ns // 10).astype(np.int32)).to(cuda_device)
-    band[5] = 1_000
+    band = torch.from_numpy(bands.astype(np.int32)).to(cuda_device)
     before = td.banded_dtw.launches
     got = td.banded_dtw(ev, lvl, n, m, band, slack)
     torch.cuda.synchronize()
     assert td.banded_dtw.launches == before + 1
     want = td.banded_dtw_plain(ev, lvl, n, m, band, slack)
     assert all(_same_bytes(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_train_dtw_kernels_with_scratch_buffers(cuda_device, monkeypatch):
+    """Both kernels with their per-case buffers in a device scratch (the
+    path a case too wide for shared memory takes), forced by setting the
+    limit to nothing: bitwise against the plain versions."""
+    from sigfish_tpu_torch.ops import train_dtw as td
+
+    monkeypatch.setattr(td, "SMEM_CASE_BYTES", 0)
+    rows, cols = _train_batch(12, [700, 0, 37, 300, 64], [900, 12, 33, 280, 64], 3.5, ints=True)
+    x, n = td.pack(rows, cuda_device)
+    y, m = td.pack(cols, cuda_device)
+    assert all(_same_bytes(a, b) for a, b in zip(td.gap_sdtw(x, y, n, m, 0.5, 0.25),
+                                                  td.gap_sdtw_plain(x, y, n, m, 0.5, 0.25)))
+    band = torch.tensor([70, 1, 4, 30, 200], dtype=torch.int32, device=cuda_device)
+    assert all(_same_bytes(a, b) for a, b in zip(td.banded_dtw(x, y, n, m, band, 60),
+                                                  td.banded_dtw_plain(x, y, n, m, band, 60)))
+
+
+@pytest.mark.gpu
+def test_train_dtw_peak_memory_below_a_matrix(cuda_device):
+    """Neither kernel's call holds a (B, N, M) matrix: each call's peak
+    device memory above what was allocated before it stays below B*N*M
+    bytes (a quarter of one f32 matrix), at phase 12's shapes."""
+    from sigfish_tpu_torch.ops import train_dtw as td
+
+    rows, cols = _train_batch(5, [689] * 256, [906] * 256, 3.5)
+    x, n = td.pack(rows, cuda_device)
+    y, m = td.pack(cols, cuda_device)
+    evs, lvls = _train_batch(6, [806] * 512, [806] * 512, 4.0)
+    ev, nb = td.pack(evs, cuda_device)
+    lvl, mb = td.pack(lvls, cuda_device)
+    band = torch.full((512,), 80, dtype=torch.int32, device=cuda_device)
+    for fn, cells in ((lambda: td.gap_sdtw(x, y, n, m, 0.5, 0.15), 256 * 689 * 906),
+                      (lambda: td.banded_dtw(ev, lvl, nb, mb, band, 60), 512 * 806 * 806)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base < cells
+        del out
 
 
 @pytest.mark.gpu

@@ -65,12 +65,41 @@ def test_gap_sdtw_plain_matches_jax(frac):
         assert paths[b][0].dtype == px.dtype == np.int64
 
 
+def _small_ints(rng, sizes):
+    """Values from {0, 1, 2}: with gaps exact in binary, up, diag and left
+    (and the end candidates) tie often."""
+    return [rng.integers(0, 3, int(s)).astype(np.float32) for s in sizes]
+
+
+# gaps exact in binary, and fit_model's annealed start
+@pytest.mark.parametrize("gaps", [(0.5, 0.25), (0.8, 0.3)])
+def test_gap_sdtw_plain_ties_match_jax(gaps):
+    """Tie-heavy cases: the walk's order (diag, then left, then up) and
+    the last row's first argmin, bitwise against the JAX functions."""
+    gu, gl = gaps
+    rng = np.random.default_rng(SEED + 1)
+    rows = _small_ints(rng, (40, 1, 33, 70, 9, 64))
+    cols = _small_ints(rng, (50, 12, 1, 30, 80, 64))
+    end, end_cost, paths = td.gap_pairs(rows, cols, gu, gl, "cpu")
+    for b, (x, y) in enumerate(zip(rows, cols)):
+        cost = jtm._subsequence_cost_gap(x, y, gu, gl)
+        e = int(cost[-1].argmin())
+        px, py = jtm._backtrack_gap(cost, x, y, e, np.float32(gu), np.float32(gl))
+        assert end[b] == e
+        assert _bits(end_cost[b]) == _bits(cost[-1, e])
+        assert np.array_equal(paths[b][0], px) and np.array_equal(paths[b][1], py)
+
+
 # (rows n, columns m, band, end_slack) per case
 BANDED = {
     "n<m": ([40, 90, 7], [70, 160, 30], [4, 9, 1], 12),
     "n>m": ([120, 64, 30], [45, 20, 9], [12, 6, 3], 10),
     "slack>=m": ([50, 8, 90], [20, 5, 60], [5, 1, 9], 60),
     "clipped both edges": ([80, 150, 33], [80, 150, 33], [100, 200, 50], 5),
+    # rows' bands (at least end_slack + 8 = 9 either side) that do not
+    # overlap from one row to the next where m / n > 19
+    "m>=4n band 1-2": ([12, 5, 9], [60, 130, 250], [1, 2, 1], 1),
+    "n>=4m": ([90, 160, 41], [20, 35, 10], [1, 2, 3], 2),
 }
 
 
@@ -84,6 +113,45 @@ def test_banded_dtw_plain_matches_jax(kind):
         px, py = jtm._banded_anchored_dtw(evs[b], lvls[b], bands[b], slack)
         assert np.array_equal(paths[b][0], px) and np.array_equal(paths[b][1], py)
         assert paths[b][0].dtype == px.dtype == np.int64
+
+
+@pytest.mark.parametrize("kind", list(BANDED))
+def test_banded_dtw_plain_ties_match_jax(kind):
+    """BANDED's shapes on tie-heavy inputs: the pointers' order (diag,
+    then up, then left, each only if strictly less) and the end's list
+    order, bitwise against the JAX function."""
+    ns, ms, bands, slack = BANDED[kind]
+    rng = np.random.default_rng(SEED + 2 * len(kind))
+    evs, lvls = _small_ints(rng, ns), _small_ints(rng, ms)
+    paths = td.banded_pairs(evs, lvls, bands, slack, "cpu")
+    for b in range(len(ns)):
+        px, py = jtm._banded_anchored_dtw(evs[b], lvls[b], bands[b], slack)
+        assert np.array_equal(paths[b][0], px) and np.array_equal(paths[b][1], py)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_banded_pointer_words_hold_every_stripe(seed):
+    """The banded wrapper's pointer words: every 32-row stripe's swept
+    steps (its first row's band start to its last row's band end, plus
+    the lag's 31) fit the stride csrc/banded_dtw.cu gives a stripe, the
+    case's stripes fit the words a case, and every row's band fits the
+    widest half band; at random shapes, bands and slacks, with extreme
+    n / m ratios among them."""
+    rng = np.random.default_rng(seed)
+    n, m, band = (rng.integers(1, 3_000, 200) for _ in range(3))
+    n[:20], m[20:40], band[40:60] = rng.integers(1, 30, 20), rng.integers(1, 20, 20), 0
+    slack = int(rng.integers(1, 80))
+    words, bw_max = td._banded_sizes(n.astype(np.int32), m.astype(np.int32),
+                                     band.astype(np.int32), slack)
+    for nn, mm, bb in zip(n.tolist(), m.tolist(), band.tolist()):
+        bw = max(bb, slack + 8)
+        stride = min(mm, 2 * bw + 2 + 31 * mm // nn) + 31   # the kernel's stripe_stride
+        i0 = np.arange(0, nn, 32)
+        i1 = np.minimum(i0 + 31, nn - 1)
+        lo = np.maximum(0, i0 * mm // nn - bw)
+        hi = np.minimum(mm, i1 * mm // nn + bw + 1)
+        assert int((hi - lo + 31).max()) <= stride
+        assert i0.size * stride <= words and bw <= bw_max
 
 
 def test_empty_cases_leave_the_others_alone():
