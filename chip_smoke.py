@@ -2591,12 +2591,13 @@ def main() -> None:
         # (the sweep, the end and the walk), its peak memory above what was
         # held before it, the SM cycles a step of the largest case's sweep
         # (the kernel's clocks) and that chain's floor
-        from sigfish_tpu_torch.scripts import bench_train_dtw as btd
+        from sigfish_tpu_torch.scripts.timing import (banded_case_steps, gap_case_steps,
+                                                      profile_launch, timed_call)
 
         rows, cols, gu12, gl12, _ = first12["gap"]
         x12, n12 = tdm.pack(rows, dev)
         y12, m12 = tdm.pack(cols, dev)
-        gap_ms, gap_mb = btd.timed_call(lambda: tdm.gap_sdtw(x12, y12, n12, m12, gu12, gl12), 5)
+        gap_ms, gap_mb = timed_call(lambda: tdm.gap_sdtw(x12, y12, n12, m12, gu12, gl12), 5)
         got = tdm.gap_sdtw(x12, y12, n12, m12, gu12, gl12)
         gap_plain_ms, want = once_ms(lambda: tdm.gap_sdtw_plain(x12, y12, n12, m12, gu12, gl12))
         ok = all(bits_equal(a, b) for a, b in zip(got, want))
@@ -2605,14 +2606,14 @@ def main() -> None:
         gap_bound_ms, gap_bound_by = bound(
             GAP_OPS_PER_CELL * gap_cells,
             4 * sum(r.size + c.size for r, c in zip(rows, cols)) + 8 * int(got[4].sum()), issue)
-        gap_R = tdm.gap_rows_per_lane(x12.shape[1])
-        gap_W = tdm.case_warps(x12.shape[0], -(-x12.shape[1] // (32 * gap_R)), dev)
-        gap_case_steps = btd.gap_case_steps(n12, m12, gap_R)
-        gap_prof = btd.profile_launch(
+        gap_R = tdm.GAP_STRIPE // 32
+        gap_W = tdm.case_warps(x12.shape[0], -(-x12.shape[1] // tdm.GAP_STRIPE), dev)
+        gap_steps12 = gap_case_steps(n12, m12, tdm.GAP_STRIPE)
+        gap_prof = profile_launch(
             tdm._library("gap_dtw").sf_gap_dtw,
-            lambda ck: tdm._gap_args(x12, y12, n12, m12, gu12, gl12, ck), gap_case_steps, 5,
+            lambda ck: tdm._gap_args(x12, y12, n12, m12, gu12, gl12, ck), gap_steps12, 5,
             "gap_sdtw")
-        gap_steps = int(gap_case_steps.max())
+        gap_steps = int(gap_steps12.max())
         gap_floor_ms = gap_steps * (gap_R + GAP_CHAIN_EXTRA) * LAT_F32 / (clk_max * 1e3)
         print(f"gap_sdtw at iteration 1's batch (B={x12.shape[0]}, N={x12.shape[1]}, "
               f"M={y12.shape[1]}, {gap_cells} cells, gaps {gu12:.4f}/{gl12:.4f}): {gap_ms:.4f} "
@@ -2630,7 +2631,7 @@ def main() -> None:
         ev12, nb12 = tdm.pack(evs, dev)
         lv12, mb12 = tdm.pack(lvls, dev)
         band12 = torch.tensor(bands, dtype=torch.int32, device=dev)
-        banded_ms, banded_mb = btd.timed_call(
+        banded_ms, banded_mb = timed_call(
             lambda: tdm.banded_dtw(ev12, lv12, nb12, mb12, band12, slack), 5)
         got = tdm.banded_dtw(ev12, lv12, nb12, mb12, band12, slack)
         banded_plain_ms, want = once_ms(
@@ -2647,13 +2648,13 @@ def main() -> None:
             BANDED_OPS_PER_CELL * banded_cells,
             4 * sum(e_.size + l_.size + 1 for e_, l_ in zip(evs, lvls)) + 8 * int(got[4].sum()),
             issue)
-        banded_case_steps = btd.banded_case_steps(nb12, mb12, band12, slack)
+        banded_steps12 = banded_case_steps(nb12, mb12, band12, slack)
         banded_W = tdm.case_warps(ev12.shape[0], -(-ev12.shape[1] // 32), dev)
-        banded_prof = btd.profile_launch(
+        banded_prof = profile_launch(
             tdm._library("banded_dtw").sf_banded_dtw,
             lambda ck: tdm._banded_args(ev12, lv12, nb12, mb12, band12, slack, 0.5, 0.25, ck),
-            banded_case_steps, 5, "banded_dtw")
-        banded_steps = int(banded_case_steps.max())
+            banded_steps12, 5, "banded_dtw")
+        banded_steps = int(banded_steps12.max())
         banded_floor_ms = banded_steps * BANDED_CHAIN_OPS * LAT_F32 / (clk_max * 1e3)
         print(f"banded_dtw at iteration 1's batch (B={ev12.shape[0]}, N={ev12.shape[1]}, "
               f"M={lv12.shape[1]}, {banded_cells} band cells, end_slack {slack}): "

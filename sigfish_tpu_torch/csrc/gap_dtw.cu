@@ -22,10 +22,11 @@
 // A block of W warps a case (W = 1 to 4, the wrapper's pick), in one
 // launch: the sweep, the end and the walk.
 //
-//   sweep  R rows a lane (R = 1, 2, 4 or 8, one instance each), 32R
-//          rows a stripe, stripe k to warp k mod W, the stripes aligned so
-//          the last one ends at row n - 1 (the first may start above row
-//          0: those rows compute nothing that row 0 reads). A warp steps
+//   sweep  R = 8 rows a lane, 32R = 256 rows a stripe, stripe k to warp
+//          k mod W, the stripes aligned so the last one ends at row n - 1
+//          (the first may start above row 0: those rows, all of a case
+//          shorter than a stripe but its last n, compute nothing that row
+//          0 reads). A warp steps
 //          over the columns with a lag of one step a lane: at step t lane
 //          l holds column t - l, its R cells in order down the column, s,
 //          h and the previous column's costs in registers. The s, h, col
@@ -44,8 +45,8 @@
 //          _backtrack_gap compares: up = col_{i-1,j} + gu, diag = P_{i-1},
 //          left = P_i + gl. It stores the choice in 2 bits (0 diag if it
 //          is the minimum, else 1 left if it is, else 2 up): a lane's R
-//          choices are one word a step, 8 / (its bytes) steps' words one
-//          8-byte pack, 32 lanes' packs one coalesced store (a store a
+//          choices are one 16-bit word a step, 4 steps' words one 8-byte
+//          pack, 32 lanes' packs one coalesced store (a store a
 //          step costs the warp more than its cells). Lane 31 of the last
 //          stripe holds row n - 1 and keeps its first argmin over the
 //          columns (strict <): the end and its cost.
@@ -79,16 +80,9 @@ constexpr int kMaxWarps = 4;
 constexpr int kSlots = kMaxWarps + 1;  // row buffers, and their counters
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDone = 0x7fffffff;  // a counter's column part: the row is whole
-
-// a lane's R choices a step: 2 bits a row
-template <int R>
-struct Word {
-  using T = uint8_t;
-};
-template <>
-struct Word<8> {
-  using T = uint16_t;
-};
+constexpr int R = 8;                // rows a lane
+using W = uint16_t;                 // a lane's R choices a step, 2 bits a row
+constexpr int kPack = 8 / sizeof(W), kBits = 8 * sizeof(W);  // words a pack
 
 // profiling, where the caller passes `clocks` (else NULL): thread 0 writes
 // its case's SM and the SM clock at the start, after the sweep and after
@@ -121,13 +115,11 @@ struct Case {
 // above it, which stand in for nothing). above / theirs: the stripe above's
 // last row and its counter; mine / ours this stripe's. Lane 31 of the last
 // stripe keeps the last row's first argmin in best, bj.
-template <int R, bool FIRST>
+template <bool FIRST>
 __device__ __forceinline__ void sweep_stripe(const Case& c, int k, bool last, int lane,
                                              const float* above, volatile long long* theirs,
                                              float* mine, volatile long long* ours,
                                              uint64_t* packs, float& best, int& bj) {
-  using W = typename Word<R>::T;
-  constexpr int kPack = 8 / sizeof(W), kBits = 8 * sizeof(W);  // words a pack
   const int ib = c.top + k * 32 * R + lane * R;  // the lane's first row
   float xr[R], iur[R], P[R];
 #pragma unroll
@@ -268,7 +260,6 @@ __device__ __forceinline__ void sweep_stripe(const Case& c, int k, bool last, in
   }
 }
 
-template <int R>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 gap_kernel(const float* __restrict__ x, const float* __restrict__ y,
            const int* __restrict__ nn, const int* __restrict__ mm, int N, int M, float gu,
@@ -276,7 +267,6 @@ gap_kernel(const float* __restrict__ x, const float* __restrict__ y,
            int buf_floats, float* __restrict__ scratch, int* __restrict__ end,
            float* __restrict__ end_cost, int* __restrict__ px, int* __restrict__ py,
            int* __restrict__ plen, long long* __restrict__ clocks) {
-  using W = typename Word<R>::T;
   extern __shared__ float smem[];
   __shared__ long long written[kSlots];
   __shared__ float end_best;
@@ -287,10 +277,10 @@ gap_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int n = nn[b], m = mm[b];
   int* ox = px + (size_t)b * (N + M);
   int* oy = py + (size_t)b * (N + M);
-  if (n <= 0 || m <= 0) {
+  if (n <= 0 || m <= 0 || n > N || m > M) {  // empty, or lengths past the padding
     if (threadIdx.x == 0) {
       end[b] = -1;
-      end_cost[b] = 0.f;
+      end_cost[b] = n >= 0 && m >= 0 && n <= N && m <= M ? 0.f : NAN;
       plen[b] = 0;
     }
     for (int k = threadIdx.x; k < N + M; k += blockDim.x) ox[k] = oy[k] = -1;
@@ -311,7 +301,6 @@ gap_kernel(const float* __restrict__ x, const float* __restrict__ y,
   float* rows = buf + M;
   const Case c{x + (size_t)b * N, buf, rows + slots * 3 * M + threadIdx.x, (int)blockDim.x,
                n, m, M, n - K * H, gu, gl};
-  constexpr int kPack = 8 / sizeof(W), kBits = 8 * sizeof(W);  // words a pack
   uint64_t* C = words + (size_t)b * case_words;
   const size_t stripe_packs = (size_t)((M + 31 + kPack - 1) / kPack) * 32;
   float best = INFINITY;
@@ -323,9 +312,9 @@ gap_kernel(const float* __restrict__ x, const float* __restrict__ y,
     volatile long long* theirs = written + (k + slots - 1) % slots;
     volatile long long* ours = written + k % slots;
     if (k == 0)
-      sweep_stripe<R, true>(c, k, K == 1, lane, above, theirs, mine, ours, C, best, bj);
+      sweep_stripe<true>(c, k, K == 1, lane, above, theirs, mine, ours, C, best, bj);
     else
-      sweep_stripe<R, false>(c, k, k == K - 1, lane, above, theirs, mine, ours,
+      sweep_stripe<false>(c, k, k == K - 1, lane, above, theirs, mine, ours,
                              C + k * stripe_packs, best, bj);
   }
   if (warp == (K - 1) % nw && lane == 31) {
@@ -402,60 +391,36 @@ gap_kernel(const float* __restrict__ x, const float* __restrict__ y,
   if (clocks && lane == 0) clocks[4 * b + 3] = clock64();
 }
 
-template <int R>
-int launch(const float* x, const float* y, const int* n, const int* m, int B, int N, int M,
-           float gu, float gl, int warps, int64_t case_words, void* words, int buf_floats,
-           float* scratch, int* end, float* end_cost, int* px, int* py, int* plen,
-           long long* clocks, cudaStream_t s) {
-  const size_t smem = scratch ? 0 : (size_t)buf_floats * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gap_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  gap_kernel<R><<<B, 32 * warps, smem, s>>>(x, y, n, m, N, M, gu, gl, case_words,
-                                            (uint64_t*)words, buf_floats, scratch, end,
-                                            end_cost, px, py, plen, clocks);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // C entry, bound with ctypes. x (B, N) and y (B, M) f32, n and m (B,) i32
-// on the card; R the rows a lane (1, 2, 4 or 8); warps 1 to 4 a case;
-// words holds B * case_words 8-byte packs of choice words (a word u8 for
-// R <= 4, u16 for 8; 8 / its size a pack), a case's stripes
-// ceil((M + 31) / (8 / word size)) * 32 packs apart, case_words >= ceil(N /
-// 32R) of them; buf_floats = M + (warps + 1) * 3 * M + 96 *
-// warps; scratch NULL (the buffers in shared memory) or B * buf_floats
-// f32. Outputs: end (B,) i32, end_cost (B,) f32, px and py (B, N + M) i32
-// in walk order padded with -1, plen (B,) i32; clocks NULL or B * 4 i64
+// on the card (a case with n outside [0, N] or m outside [0, M] gets end
+// -1, end cost NaN and no path); warps 1 to 4 a case; words holds B *
+// case_words 8-byte packs of choice words (4 u16 words a pack), a case's
+// stripes ceil((M + 31) / 4) * 32 packs apart, case_words >= ceil(N / 256)
+// stripes of them; buf_floats = M + (warps + 1) * 3 * M + 96 * warps;
+// scratch NULL (the buffers in shared memory) or B * buf_floats f32.
+// Outputs: end (B,) i32, end_cost (B,) f32, px and py (B, N + M) i32 in
+// walk order padded with -1, plen (B,) i32; clocks NULL or B * 4 i64
 // (sm_id). Launches on `stream`, allocates nothing and returns
 // cudaGetLastError() (0 on success).
 extern "C" int sf_gap_dtw(const float* x, const float* y, const int* n, const int* m, int B,
-                          int N, int M, float gu, float gl, int R, int warps,
-                          long long case_words, void* words, int buf_floats, float* scratch,
-                          int* end, float* end_cost, int* px, int* py, int* plen,
-                          long long* clocks, void* stream) {
+                          int N, int M, float gu, float gl, int warps, long long case_words,
+                          void* words, int buf_floats, float* scratch, int* end,
+                          float* end_cost, int* px, int* py, int* plen, long long* clocks,
+                          void* stream) {
   if (B < 0 || N < 1 || M < 1 || case_words < 1 || warps < 1 || warps > kMaxWarps ||
       buf_floats < M + (warps + 1) * 3 * M + 96 * warps)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (R) {
-    case 1:
-      return launch<1>(x, y, n, m, B, N, M, gu, gl, warps, case_words, words, buf_floats,
-                       scratch, end, end_cost, px, py, plen, clocks, s);
-    case 2:
-      return launch<2>(x, y, n, m, B, N, M, gu, gl, warps, case_words, words, buf_floats,
-                       scratch, end, end_cost, px, py, plen, clocks, s);
-    case 4:
-      return launch<4>(x, y, n, m, B, N, M, gu, gl, warps, case_words, words, buf_floats,
-                       scratch, end, end_cost, px, py, plen, clocks, s);
-    case 8:
-      return launch<8>(x, y, n, m, B, N, M, gu, gl, warps, case_words, words, buf_floats,
-                       scratch, end, end_cost, px, py, plen, clocks, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  const size_t smem = scratch ? 0 : (size_t)buf_floats * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(gap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  gap_kernel<<<B, 32 * warps, smem, (cudaStream_t)stream>>>(
+      x, y, n, m, N, M, gu, gl, case_words, (uint64_t*)words, buf_floats, scratch, end, end_cost,
+      px, py, plen, clocks);
+  return (int)cudaGetLastError();
 }

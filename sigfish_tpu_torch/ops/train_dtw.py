@@ -51,16 +51,7 @@ import torch
 
 BIGF = 3e37  # the banded DP's out-of-band cost
 EMPTY = -1   # end and path entries of an empty case, and past a path's end
-GAP_RUNS = (1, 2, 4, 8)  # rows a lane of the gap kernel's instances
-
-
-def gap_rows_per_lane(N: int) -> int:
-    """The gap kernel's rows a lane for a batch of N padded rows: the
-    instance whose stripes (32 lanes' runs) take the fewest SM cycles at
-    ~35 a row and ~190 a step, one warp's cost as scripts/bench_train_dtw
-    measured it on an H100 at N=689 (4, 8 and 16 rows a lane; 16 spilled
-    registers and lost to 8 at every warp count, so no instance has it)."""
-    return min(GAP_RUNS, key=lambda r: (-(-max(N, 1) // (32 * r))) * (35 * r + 190))
+GAP_STRIPE = 256  # the gap kernel's rows a stripe: 8 rows a lane
 
 
 def case_warps(B: int, stripes: int, device) -> int:
@@ -71,10 +62,9 @@ def case_warps(B: int, stripes: int, device) -> int:
     return max(1, min(4, stripes, -(-8 * sms // max(B, 1))))
 
 
-def _check(fn: str, x, y, n, m, *more) -> list[np.ndarray]:
-    """Raise on inputs the wrappers do not take. Returns the lengths n, m
-    and the (B,) int32 tensors more as numpy arrays, brought to the host
-    in one copy."""
+def _check(fn: str, x, y, n, m) -> None:
+    """Raise on inputs the wrappers do not take, but for the lengths'
+    values (_lengths), which are on the device."""
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise TypeError(f"{fn}: rows and columns must be float32")
     if x.dim() != 2 or y.dim() != 2 or x.shape[0] != y.shape[0]:
@@ -86,9 +76,15 @@ def _check(fn: str, x, y, n, m, *more) -> list[np.ndarray]:
             raise ValueError(f"{fn}: {name} must be int32 ({B},)")
     if len({x.device, y.device, n.device, m.device}) != 1:
         raise ValueError(f"{fn}: inputs on several devices")
+
+
+def _lengths(fn: str, x, y, n, m, *more) -> list[np.ndarray]:
+    """The lengths n, m and the (B,) int32 tensors more as numpy arrays,
+    brought to the host in one copy; raises on lengths outside the
+    padding."""
     host = torch.stack([n, m, *more]).cpu().numpy()
-    if B and (host[0].min() < 0 or host[0].max() > x.shape[1] or host[1].min() < 0
-              or host[1].max() > y.shape[1]):
+    if x.shape[0] and (host[0].min() < 0 or host[0].max() > x.shape[1]
+                       or host[1].min() < 0 or host[1].max() > y.shape[1]):
         raise ValueError(f"{fn}: lengths outside [0, {x.shape[1]}] x [0, {y.shape[1]}]")
     return list(host)
 
@@ -192,21 +188,20 @@ def gap_sdtw_plain(x, y, n, m, gap_up: float, gap_left: float):
     return end.to(torch.int32), end_cost, px, py, plen
 
 
-def _gap_args(x, y, n, m, gap_up: float, gap_left: float, clocks=None):
+def _gap_args(x, y, n, m, gap_up: float, gap_left: float, clocks=None, warps=None):
     """sf_gap_dtw's arguments but the stream, its outputs (end, end_cost,
     px, py, plen) and the buffers the arguments point into, allocated on
-    x's device; clocks: None or a (B, 4) int64 tensor there."""
+    x's device; clocks: None or a (B, 4) int64 tensor there; warps: the
+    warps a case (at most the stripes), case_warps' pick if None."""
     B, N = x.shape
     M = y.shape[1]
     x, y = x.contiguous(), y.contiguous()
     dev = x.device
-    R = gap_rows_per_lane(N)
-    stripes = -(-N // (32 * R))
-    warps = case_warps(B, stripes, dev)
-    # a stripe's choice words, R * 2 bits a step, go 8 bytes (a pack of
-    # steps) at a time
-    pack = 8 // _GAP_WORD_BYTES[R]
-    case_words = stripes * -(-(M + 31) // pack) * 32
+    stripes = -(-N // GAP_STRIPE)
+    warps = case_warps(B, stripes, dev) if warps is None else max(1, min(warps, stripes))
+    # a stripe's choice words, 16 bits (8 rows' 2 bits) a step, go 8 bytes
+    # (4 steps) at a time
+    case_words = stripes * -(-(M + 31) // 4) * 32
     words = torch.empty(B * case_words, dtype=torch.int64, device=dev)
     buf_floats = M + (warps + 1) * 3 * M + 96 * warps
     scratch = _scratch(B, buf_floats, dev)
@@ -214,7 +209,7 @@ def _gap_args(x, y, n, m, gap_up: float, gap_left: float, clocks=None):
     end, plen = torch.empty(B, **i32), torch.empty(B, **i32)
     end_cost = torch.empty(B, dtype=torch.float32, device=dev)
     px, py = torch.empty((B, N + M), **i32), torch.empty((B, N + M), **i32)
-    args = (x.data_ptr(), y.data_ptr(), n.data_ptr(), m.data_ptr(), B, N, M, gap_up, gap_left, R,
+    args = (x.data_ptr(), y.data_ptr(), n.data_ptr(), m.data_ptr(), B, N, M, gap_up, gap_left,
             warps, case_words, words.data_ptr(), buf_floats, _ptr(scratch), end.data_ptr(),
             end_cost.data_ptr(), px.data_ptr(), py.data_ptr(), plen.data_ptr(), _ptr(clocks))
     return args, (end, end_cost, px, py, plen), (x, y, words, scratch)
@@ -233,10 +228,14 @@ def gap_sdtw(x, y, n, m, gap_up: float, gap_left: float):
     argmin of the last row. Returns (end (B,) int32, end_cost (B,) f32
     = cost[n-1, end], px, py (B, N + M) int32 in walk order, plen (B,)
     int32); an empty case has end -1, end_cost 0 and no path. CPU
-    tensors run gap_sdtw_plain; CUDA tensors launch csrc/gap_dtw.cu
-    (counted in gap_sdtw.launches) or raise."""
+    tensors run gap_sdtw_plain, and raise on lengths outside the padding;
+    CUDA tensors launch csrc/gap_dtw.cu (counted in gap_sdtw.launches) or
+    raise, and the kernel gives a case with such lengths end -1, end_cost
+    NaN and no path (the lengths stay on the card, so the call does not
+    wait for the card)."""
     _check("gap_sdtw", x, y, n, m)
     if x.device.type == "cpu":
+        _lengths("gap_sdtw", x, y, n, m)
         return gap_sdtw_plain(x, y, n, m, gap_up, gap_left)
     if x.device.type != "cuda":
         raise ValueError(f"gap_sdtw: unsupported device {x.device}")
@@ -341,11 +340,12 @@ def _banded_sizes(n: np.ndarray, m: np.ndarray, band: np.ndarray,
 
 
 def _banded_args(ev, lvl, n, m, band, end_slack: int, gap_up: float, gap_left: float,
-                 clocks=None, sizes=None):
+                 clocks=None, sizes=None, warps=None):
     """sf_banded_dtw's arguments but the stream, its outputs (end_i,
     end_j, px, py, plen) and the buffers the arguments point into,
     allocated on ev's device; clocks: None or a (B, 4) int64 tensor
-    there; sizes: _banded_sizes' values, found here if None."""
+    there; sizes: _banded_sizes' values, found here if None; warps: the
+    warps a case (at most the stripes), case_warps' pick if None."""
     B, N = ev.shape
     M = lvl.shape[1]
     ev, lvl = ev.contiguous(), lvl.contiguous()
@@ -354,7 +354,8 @@ def _banded_args(ev, lvl, n, m, band, end_slack: int, gap_up: float, gap_left: f
         sizes = _banded_sizes(*[t.cpu().numpy() for t in (n, m, band)], end_slack)
     case_words, bw_max = sizes
     row_cap = min(M, 2 * bw_max + 1)
-    warps = case_warps(B, -(-N // 32), dev)
+    stripes = -(-N // 32)
+    warps = case_warps(B, stripes, dev) if warps is None else max(1, min(warps, stripes))
     smem_floats = M + (warps + 1) * row_cap + min(end_slack, M) + min(end_slack, N)
     words = torch.empty(B * case_words * 2, dtype=torch.int32, device=dev)
     scratch = _scratch(B, smem_floats, dev)
@@ -384,13 +385,14 @@ def banded_dtw(ev, lvl, n, m, band, end_slack: int, gap_up: float = 0.5, gap_lef
         raise ValueError(f"banded_dtw: band must be int32 ({B},) on {ev.device}")
     if end_slack < 1:
         raise ValueError(f"banded_dtw: end_slack {end_slack} < 1 leaves no end candidate")
+    _check("banded_dtw", ev, lvl, n, m)
     if ev.device.type == "cpu":
-        _check("banded_dtw", ev, lvl, n, m)
+        _lengths("banded_dtw", ev, lvl, n, m)
         return banded_dtw_plain(ev, lvl, n, m, band, end_slack, gap_up, gap_left)
     if ev.device.type != "cuda":
         raise ValueError(f"banded_dtw: unsupported device {ev.device}")
     # the buffers' sizes from the lengths and bands the check brings over
-    sizes = _banded_sizes(*_check("banded_dtw", ev, lvl, n, m, band), end_slack)
+    sizes = _banded_sizes(*_lengths("banded_dtw", ev, lvl, n, m, band), end_slack)
     lib = _library("banded_dtw")
     with torch.cuda.device(ev.device):
         args, out, _ = _banded_args(ev, lvl, n, m, band, end_slack, gap_up, gap_left,
@@ -429,7 +431,6 @@ def banded_pairs(evs: list[np.ndarray], lvls: list[np.ndarray], bands: list[int]
 # boundary rows, the end candidates) live in shared memory up to this many
 # bytes a case, else in a device scratch the wrapper allocates
 SMEM_CASE_BYTES = 200 * 1024
-_GAP_WORD_BYTES = {1: 1, 2: 1, 4: 1, 8: 2}
 
 
 def _scratch(B: int, floats: int, dev):
@@ -451,8 +452,8 @@ def _declare(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """lib with its C entry's argument types declared."""
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     if name == "gap_dtw":
-        lib.sf_gap_dtw.argtypes = [p, p, p, p, i, i, i, f, f, i, i, ll, p, i, p, p, p, p, p, p,
-                                   p, p]
+        lib.sf_gap_dtw.argtypes = [p, p, p, p, i, i, i, f, f, i, ll, p, i, p, p, p, p, p, p, p,
+                                   p]
         lib.sf_gap_dtw.restype = ctypes.c_int
     else:
         lib.sf_banded_dtw.argtypes = [p, p, p, p, p, i, i, i, i, f, f, i, ll, p, i, i, p, p, p,

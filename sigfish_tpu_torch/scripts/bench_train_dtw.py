@@ -3,27 +3,19 @@ at chip_smoke.py phase 12's iteration-1 batches: each call's ms, peak
 device memory and SM cycles a step, held bit for bit to the plain
 versions.
 
-    python -m sigfish_tpu_torch.scripts.bench_train_dtw [--old DIR] [--reps 5]
+    python -m sigfish_tpu_torch.scripts.bench_train_dtw [--reps 5] [--warps 1,2,3,4]
 
 Run from the root of a checkout on a machine with the card. It makes
 phase 4's and phase 7's workloads with chip_smoke.py's generators and
 seeds, loads phase 12's cases (the first 256 DNA reads, the first 512
 trimmed RNA reads) and runs fit_model and fit_model_banded on the card
-to their first E-step, recording the batch each passes to its DP. Then:
-
-1. Times gap_sdtw and banded_dtw on those batches (the median of --reps
-   calls, CUDA events after a warm-up), each call's peak memory above
-   what was allocated before it, and SM cycles a step at the maximum SM
-   clock (a step: the warp's anti-diagonal step of the sweep), and holds
-   every output bitwise to the plain version.
-2. With --old DIR, where DIR/gap_dtw.cu and DIR/banded_dtw.cu are the
-   full-matrix design (a column-sum pass gap_prefix, a block-a-case
-   sweep gap_sweep and a thread-a-case walk gap_path; banded_dp and
-   banded_path over a filled (B, N, M) cost and pointer matrix), builds
-   them with per-launch entry points appended and times each launch
-   alone (and each fill the wrapper made) with CUDA events, in turns
-   with the current kernels: old, new, new, old. Their outputs are held
-   bitwise to the current kernels'.
+to their first E-step, recording the batch each passes to its DP. Then
+it times gap_sdtw and banded_dtw on those batches (the median of --reps
+calls, CUDA events after a warm-up), each call's peak memory above what
+was allocated before it, and each launch alone with its SM cycles a step
+(a step: the warp's anti-diagonal step of the sweep), at the wrapper's
+warps a case and at each of --warps, and holds every output bitwise to
+the plain version.
 
 It needs a CUDA card and fails without one. The last line is one JSON
 object.
@@ -32,40 +24,18 @@ object.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import tempfile
 
-import numpy as np
 import torch
 
-from ..kernels import build as kbuild
 from ..ops import train_dtw as td
-from .timing import median_ms, sm_clock_mhz
+from .timing import banded_case_steps, gap_case_steps, profile_launch, sm_clock_mhz, timed_call
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-# per-launch entries of the full-matrix design: its sf_gap_dtw launches the
-# column sums and the sweep together
-_OLD_GAP_SHIM = r"""
-extern "C" int sfx_gap_prefix(const float* x, const float* y, const int* n, const int* m, int B,
-                              int N, int M, float gu, float* cost, void* stream) {
-  const int64_t cols = (int64_t)B * M;
-  gap_prefix<<<(unsigned)((cols + kThreads - 1) / kThreads), kThreads, 0,
-               (cudaStream_t)stream>>>(x, y, n, m, B, N, M, gu, cost);
-  return (int)cudaGetLastError();
-}
-extern "C" int sfx_gap_sweep(const float* x, const float* y, const int* n, const int* m, int B,
-                             int N, int M, float gu, float gl, float* cost, void* stream) {
-  gap_sweep<<<B, kSweepThreads, 0, (cudaStream_t)stream>>>(x, y, n, m, N, M, gu, gl, cost);
-  return (int)cudaGetLastError();
-}
-"""
 
 
 def load_smoke():
@@ -123,190 +93,10 @@ def iteration1_batches(work: str, device="cuda", n_dna=None, n_rna=None, smoke=N
     return first
 
 
-def build_old(src_dir: str, out_dir: str) -> dict[str, ctypes.CDLL]:
-    """The full-matrix design's two libraries from src_dir, the gap one
-    with per-launch entries, built with the port's nvcc flags."""
-    libs = {}
-    for name in ("gap_dtw", "banded_dtw"):
-        with open(os.path.join(src_dir, f"{name}.cu")) as f:
-            text = f.read() + (_OLD_GAP_SHIM if name == "gap_dtw" else "")
-        h = hashlib.sha256(text.encode()).hexdigest()[:12]
-        src = os.path.join(out_dir, f"old_{name}-{h}.cu")
-        with open(src, "w") as f:
-            f.write(text)
-        so = src[:-3] + ".so"
-        r = subprocess.run([kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-o", so, src],
-                           capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the old {name}.cu:\n{r.stdout}\n{r.stderr}")
-        libs[name] = ctypes.CDLL(so)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    g, b = libs["gap_dtw"], libs["banded_dtw"]
-    g.sfx_gap_prefix.argtypes = [p, p, p, p, i, i, i, f, p, p]
-    g.sfx_gap_sweep.argtypes = [p, p, p, p, i, i, i, f, f, p, p]
-    g.sf_gap_path.argtypes = [p, p, p, i, i, i, f, f, p, p, p, p, p, p]
-    b.sf_banded_dtw.argtypes = [p, p, p, p, p, i, i, i, i, f, f, p, p, p]
-    b.sf_banded_path.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p]
-    for fn in (g.sfx_gap_prefix, g.sfx_gap_sweep, g.sf_gap_path, b.sf_banded_dtw, b.sf_banded_path):
-        fn.restype = ctypes.c_int
-    return libs
-
-
-def _ok(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
-
-
-def old_gap_call(lib, x, y, n, m, gu, gl, ev=None):
-    """One call of the full-matrix gap design; with ev (a list of 5 CUDA
-    events) recorded before the cost allocation, the column sums, the
-    sweep, the walk's output fills and the walk, and after it."""
-    B, N = x.shape
-    M = y.shape[1]
-    dev = x.device
-    s = torch.cuda.current_stream(dev).cuda_stream
-    rec = (lambda k: ev[k].record()) if ev else (lambda k: None)
-    rec(0)
-    cost = torch.empty(B * N * M, dtype=torch.float32, device=dev)
-    _ok(lib.sfx_gap_prefix(x.data_ptr(), y.data_ptr(), n.data_ptr(), m.data_ptr(), B, N, M, gu,
-                           cost.data_ptr(), s), "gap_prefix")
-    rec(1)
-    _ok(lib.sfx_gap_sweep(x.data_ptr(), y.data_ptr(), n.data_ptr(), m.data_ptr(), B, N, M, gu, gl,
-                          cost.data_ptr(), s), "gap_sweep")
-    rec(2)
-    end = torch.empty(B, dtype=torch.int32, device=dev)
-    end_cost = torch.empty(B, dtype=torch.float32, device=dev)
-    px = torch.full((B, N + M), td.EMPTY, dtype=torch.int32, device=dev)
-    py = torch.full((B, N + M), td.EMPTY, dtype=torch.int32, device=dev)
-    plen = torch.empty(B, dtype=torch.int32, device=dev)
-    rec(3)
-    _ok(lib.sf_gap_path(cost.data_ptr(), n.data_ptr(), m.data_ptr(), B, N, M, gu, gl,
-                        end.data_ptr(), end_cost.data_ptr(), px.data_ptr(), py.data_ptr(),
-                        plen.data_ptr(), s), "gap_path")
-    rec(4)
-    return end, end_cost, px, py, plen
-
-
-def old_banded_call(lib, ev_, lvl, n, m, band, slack, ev=None):
-    """One call of the full-matrix banded design; with ev (5 CUDA events)
-    recorded before the cost fill (BIGF), the pointer fill (0), the DP,
-    the walk's output fills and the walk, and after it."""
-    B, N = ev_.shape
-    M = lvl.shape[1]
-    dev = ev_.device
-    s = torch.cuda.current_stream(dev).cuda_stream
-    rec = (lambda k: ev[k].record()) if ev else (lambda k: None)
-    rec(0)
-    cost = torch.full((B * N * M,), td.BIGF, dtype=torch.float32, device=dev)
-    rec(1)
-    ptr = torch.zeros(B * N * M, dtype=torch.int8, device=dev)
-    rec(2)
-    _ok(lib.sf_banded_dtw(ev_.data_ptr(), lvl.data_ptr(), n.data_ptr(), m.data_ptr(),
-                          band.data_ptr(), B, N, M, slack, 0.5, 0.25, cost.data_ptr(),
-                          ptr.data_ptr(), s), "banded_dp")
-    rec(3)
-    ei = torch.empty(B, dtype=torch.int32, device=dev)
-    ej = torch.empty(B, dtype=torch.int32, device=dev)
-    px = torch.full((B, N + M), td.EMPTY, dtype=torch.int32, device=dev)
-    py = torch.full((B, N + M), td.EMPTY, dtype=torch.int32, device=dev)
-    plen = torch.empty(B, dtype=torch.int32, device=dev)
-    rec(4)
-    _ok(lib.sf_banded_path(cost.data_ptr(), ptr.data_ptr(), n.data_ptr(), m.data_ptr(), B, N, M,
-                           slack, ei.data_ptr(), ej.data_ptr(), px.data_ptr(), py.data_ptr(),
-                           plen.data_ptr(), s), "banded_path")
-    rec(5)
-    return ei, ej, px, py, plen
-
-
-def timed_parts(call, k: int, reps: int) -> list[float]:
-    """Median ms of each of the k parts of call(ev) between its k + 1
-    CUDA events, over reps calls after a warm-up."""
-    call(None)
-    torch.cuda.synchronize()
-    parts = []
-    for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(k + 1)]
-        call(ev)
-        torch.cuda.synchronize()
-        parts.append([ev[q].elapsed_time(ev[q + 1]) for q in range(k)])
-    return [statistics.median(p[q] for p in parts) for q in range(k)]
-
-
-def timed_call(fn, reps: int) -> tuple[float, float]:
-    """(median ms of fn() over reps calls after a warm-up, MB of device
-    memory its call's peak held above what was allocated before it)."""
-    fn()
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    fn()
-    torch.cuda.synchronize()
-    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
-    times = []
-    for _ in range(reps):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times), peak
-
-
 def same(a, b) -> bool:
     return all(u.dtype == v.dtype and u.shape == v.shape
                and torch.equal(u.contiguous().view(torch.uint8), v.contiguous().view(torch.uint8))
                for u, v in zip(a, b))
-
-
-def gap_case_steps(n: torch.Tensor, m: torch.Tensor, R: int) -> np.ndarray:
-    """Each case's sweep steps at R rows a lane: its stripes times
-    (m + 31)."""
-    n, m = n.long().cpu().numpy(), m.long().cpu().numpy()
-    H = 32 * R
-    return np.where((n > 0) & (m > 0), (n + H - 1) // H * (m + 31), 0)
-
-
-def banded_case_steps(n: torch.Tensor, m: torch.Tensor, band: torch.Tensor,
-                      slack: int) -> np.ndarray:
-    """Each case's sweep steps: over its 32-row stripes, the columns
-    from the first row's band start to the last row's band end, plus
-    31."""
-    out = []
-    for nn, mm, bb in zip(n.tolist(), m.tolist(), band.tolist()):
-        if nn <= 0 or mm <= 0:
-            out.append(0)
-            continue
-        bw = max(bb, slack + 8)
-        i0 = np.arange(0, nn, 32)
-        i1 = np.minimum(i0 + 31, nn - 1)
-        lo = np.maximum(0, i0 * mm // nn - bw)
-        hi = np.minimum(mm, i1 * mm // nn + bw + 1)
-        out.append(int((hi - lo + 31).sum()))
-    return np.array(out)
-
-
-def profile_launch(entry, args_fn, steps: np.ndarray, reps: int, what: str) -> dict:
-    """One kernel's launch alone: the median ms of reps launches (CUDA
-    events, after a warm-up) and, from its clocks, the SM cycles of each
-    case's sweep and walk, the sweep's cycles a step (the largest case's
-    and the median over cases) and the cases an SM held at most."""
-    dev = torch.device("cuda")
-    B = steps.size
-    clocks = torch.zeros((B, 4), dtype=torch.int64, device=dev)
-    args, out, hold = args_fn(clocks)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ms = median_ms(lambda: td._run(entry, args, stream, what), reps)
-    c = clocks.cpu().numpy()
-    live = steps > 0
-    sweep, walk = (c[:, 2] - c[:, 1])[live], (c[:, 3] - c[:, 2])[live]
-    per = sweep / steps[live]
-    big = int(np.argmax(steps[live]))
-    sms = np.bincount(c[live, 0].astype(np.int64))
-    return {"launch_ms": ms, "sweep_cycles_max": int(sweep.max()),
-            "walk_cycles_max": int(walk.max()), "cycles_per_step_largest": float(per[big]),
-            "cycles_per_step_median": float(np.median(per)), "sms_used": int((sms > 0).sum()),
-            "cases_per_sm_max": int(sms.max())}
 
 
 class Batches:
@@ -331,80 +121,64 @@ class Batches:
     def banded(self):
         return td.banded_dtw(self.e, self.lv, self.nb, self.mb, self.band, self.slack)
 
-    def gap_profile(self, reps: int, R: int) -> dict:
-        return profile_launch(
-            td._library("gap_dtw").sf_gap_dtw,
-            lambda ck: td._gap_args(self.x, self.y, self.n, self.m, self.gu, self.gl, ck),
-            gap_case_steps(self.n, self.m, R), reps, "gap_sdtw")
+    def gap_profile(self, reps: int, warps=None) -> dict:
+        """The gap launch alone at warps a case (the wrapper's pick if
+        None), its outputs held to the plain version."""
+        made = []
 
-    def banded_profile(self, reps: int) -> dict:
-        return profile_launch(
-            td._library("banded_dtw").sf_banded_dtw,
-            lambda ck: td._banded_args(self.e, self.lv, self.nb, self.mb, self.band, self.slack,
-                                       0.5, 0.25, ck),
-            banded_case_steps(self.nb, self.mb, self.band, self.slack), reps, "banded_dtw")
+        def make(clocks):
+            made.append(td._gap_args(self.x, self.y, self.n, self.m, self.gu, self.gl, clocks,
+                                     warps))
+            return made[0]
+
+        prof = profile_launch(td._library("gap_dtw").sf_gap_dtw, make,
+                              gap_case_steps(self.n, self.m, td.GAP_STRIPE), reps, "gap_sdtw")
+        args, out, _ = made[0]
+        return dict(prof, warps=args[9], bitwise_vs_plain=same(out, self.want_gap))
+
+    def banded_profile(self, reps: int, warps=None) -> dict:
+        """The banded launch alone at warps a case (the wrapper's pick if
+        None), its outputs held to the plain version."""
+        made = []
+
+        def make(clocks):
+            made.append(td._banded_args(self.e, self.lv, self.nb, self.mb, self.band, self.slack,
+                                        0.5, 0.25, clocks, warps=warps))
+            return made[0]
+
+        prof = profile_launch(td._library("banded_dtw").sf_banded_dtw, make,
+                              banded_case_steps(self.nb, self.mb, self.band, self.slack), reps,
+                              "banded_dtw")
+        args, out, _ = made[0]
+        return dict(prof, warps=args[11], bitwise_vs_plain=same(out, self.want_banded))
 
 
-def new_round(bt: Batches, reps: int, rows_list: list[int], warps_list: list[int]) -> dict:
-    """The current kernels: each call through its wrapper (ms, peak MB),
-    its launch alone with its clocks at the wrapper's picks, and at each
-    rows a lane and warps a case asked for, every output held to the
-    plain versions."""
+def run(bt: Batches, reps: int, warps_list: list[int]) -> dict:
+    """Each call through its wrapper (ms, peak MB) and its launch alone
+    with its clocks, at the wrapper's warps a case and at each of
+    warps_list, every output held to the plain versions."""
     ok = same(bt.gap(), bt.want_gap) and same(bt.banded(), bt.want_banded)
     gms, gmb = timed_call(bt.gap, reps)
     bms, bmb = timed_call(bt.banded, reps)
-    R = td.gap_rows_per_lane(bt.x.shape[1])
     res = {"gap_ms": gms, "gap_peak_mb": gmb, "banded_ms": bms, "banded_peak_mb": bmb,
-           "gap": dict(bt.gap_profile(reps, R), rows_per_lane=R), "banded": bt.banded_profile(reps)}
-    pick_rows, pick_warps = td.gap_rows_per_lane, td.case_warps
-    try:
-        for w in warps_list:
-            td.case_warps = lambda B, stripes, dev, w=w: max(1, min(w, stripes))
-            res[f"banded_warps{w}"] = dict(bt.banded_profile(reps),
-                                           bitwise_vs_plain=same(bt.banded(), bt.want_banded))
-            for r in rows_list:
-                td.gap_rows_per_lane = lambda N, r=r: r
-                res[f"gap_rows{r}_warps{w}"] = dict(bt.gap_profile(reps, r),
-                                                    bitwise_vs_plain=same(bt.gap(), bt.want_gap))
-                td.gap_rows_per_lane = pick_rows
-    finally:
-        td.gap_rows_per_lane, td.case_warps = pick_rows, pick_warps
-    res["bitwise_vs_plain"] = ok and all(v["bitwise_vs_plain"] for k, v in res.items()
-                                         if k.endswith(tuple(f"warps{w}" for w in warps_list)))
+           "gap": bt.gap_profile(reps), "banded": bt.banded_profile(reps)}
+    for w in warps_list:
+        res[f"gap_warps{w}"] = bt.gap_profile(reps, w)
+        res[f"banded_warps{w}"] = bt.banded_profile(reps, w)
+    res["bitwise_vs_plain"] = ok and all(v["bitwise_vs_plain"] for v in res.values()
+                                         if isinstance(v, dict))
     return res
-
-
-def old_round(libs: dict, bt: Batches, reps: int) -> dict:
-    """The full-matrix design, launch by launch and each fill, with each
-    call's peak MB, its outputs held to the plain versions."""
-    g, b = libs["gap_dtw"], libs["banded_dtw"]
-    gap = lambda ev: old_gap_call(g, bt.x, bt.y, bt.n, bt.m, bt.gu, bt.gl, ev)  # noqa: E731
-    banded = lambda ev: old_banded_call(  # noqa: E731
-        b, bt.e, bt.lv, bt.nb, bt.mb, bt.band, bt.slack, ev)
-    ok = same(gap(None), bt.want_gap) and same(banded(None), bt.want_banded)
-    gp, bp = timed_parts(gap, 4, reps), timed_parts(banded, 5, reps)
-    _, gmb = timed_call(lambda: gap(None), 1)
-    _, bmb = timed_call(lambda: banded(None), 1)
-    return {"gap_prefix_ms": gp[0], "gap_sweep_ms": gp[1], "gap_fills_ms": gp[2],
-            "gap_path_ms": gp[3], "gap_ms": sum(gp), "gap_peak_mb": gmb,
-            "banded_cost_fill_ms": bp[0], "banded_ptr_fill_ms": bp[1], "banded_dp_ms": bp[2],
-            "banded_path_fills_ms": bp[3], "banded_path_ms": bp[4], "banded_ms": sum(bp),
-            "banded_peak_mb": bmb, "bitwise_vs_plain": ok}
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", help="directory with the full-matrix design's gap_dtw.cu and "
-                                  "banded_dtw.cu, timed launch by launch")
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--gap-rows", default="", help="comma-separated rows a lane to time the gap "
-                                                   "kernel at (with --warps)")
-    ap.add_argument("--warps", default="", help="comma-separated warps a case to time both "
-                                                "kernels at")
+    ap.add_argument("--warps", default="", help="comma-separated warps a case (1 to 4) to time "
+                                                "both kernels' launches at")
     args = ap.parse_args(argv)
-    bad = [v for v in args.gap_rows.split(",") if v and int(v) not in td.GAP_RUNS]
-    if bad:
-        ap.error(f"--gap-rows {','.join(bad)}: the gap kernel has {td.GAP_RUNS} rows a lane")
+    warps_list = [int(v) for v in args.warps.split(",") if v]
+    if any(not 1 <= w <= 4 for w in warps_list):
+        ap.error(f"--warps {args.warps}: the kernels run 1 to 4 warps a case")
     if not torch.cuda.is_available():
         raise SystemExit("bench_train_dtw: needs a CUDA card")
     dev = torch.device("cuda")
@@ -420,18 +194,9 @@ def main(argv=None) -> None:
               f"{int((bt.n.long() * bt.m.long()).sum())} cells, gaps {bt.gu:.4f}/{bt.gl:.4f}; "
               f"banded batch B={bt.e.shape[0]}, N={bt.e.shape[1]}, M={bt.lv.shape[1]}, "
               f"end_slack {bt.slack}")
-        ints = lambda v: [int(s) for s in v.split(",") if s]  # noqa: E731
-        rows_list = ints(args.gap_rows) or [td.gap_rows_per_lane(bt.x.shape[1])]
-        out = {"card": smi, "sm_clock_mhz": clk}
-        libs = build_old(args.old, work) if args.old else None
-        for k, who in enumerate(("old", "new", "new", "old") if libs else ("new",)):
-            tag = f"{who}{k}"
-            out[tag] = (new_round(bt, args.reps, rows_list, ints(args.warps)) if who == "new"
-                        else old_round(libs, bt, args.reps))
-            print(f"{tag}: {json.dumps(out[tag])}")
-            if not out[tag]["bitwise_vs_plain"]:
-                raise SystemExit(f"bench_train_dtw: the {who} kernels differ from the plain "
-                                 "versions")
+        out = {"card": smi, "sm_clock_mhz": clk, "run": run(bt, args.reps, warps_list)}
+        if not out["run"]["bitwise_vs_plain"]:
+            raise SystemExit("bench_train_dtw: the kernels differ from the plain versions")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps(out))

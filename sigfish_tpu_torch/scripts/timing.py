@@ -1,11 +1,14 @@
 """Timing helpers shared by chip_smoke.py and the benches: the median of
-CUDA-event times, and the card's SM clock. Both need a CUDA card."""
+CUDA-event times, a call's peak memory, a kernel launch's per-case SM
+clocks, the trainer kernels' sweep steps, and the card's SM clock. All
+but the step counts need a CUDA card."""
 
 from __future__ import annotations
 
 import statistics
 import subprocess
 
+import numpy as np
 import torch
 
 
@@ -35,3 +38,74 @@ def sm_clock_mhz() -> tuple[float, float]:
         raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
     now, top = r.stdout.strip().splitlines()[0].split(",")
     return float(now), float(top)
+
+
+def timed_call(fn, reps: int) -> tuple[float, float]:
+    """(median ms of fn() over reps calls after a warm-up, MB of device
+    memory its call's peak held above what was allocated before it)."""
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+    return median_ms(fn, reps), peak
+
+
+def gap_case_steps(n: torch.Tensor, m: torch.Tensor, stripe_rows: int) -> np.ndarray:
+    """Each case's sweep steps in csrc/gap_dtw.cu: its stripes of
+    stripe_rows rows times (m + 31)."""
+    n, m = n.long().cpu().numpy(), m.long().cpu().numpy()
+    H = stripe_rows
+    return np.where((n > 0) & (m > 0), (n + H - 1) // H * (m + 31), 0)
+
+
+def banded_case_steps(n: torch.Tensor, m: torch.Tensor, band: torch.Tensor,
+                      slack: int) -> np.ndarray:
+    """Each case's sweep steps in csrc/banded_dtw.cu: over its 32-row
+    stripes, the columns from the first row's band start to the last
+    row's band end, plus 31."""
+    out = []
+    for nn, mm, bb in zip(n.tolist(), m.tolist(), band.tolist()):
+        if nn <= 0 or mm <= 0:
+            out.append(0)
+            continue
+        bw = max(bb, slack + 8)
+        i0 = np.arange(0, nn, 32)
+        i1 = np.minimum(i0 + 31, nn - 1)
+        lo = np.maximum(0, i0 * mm // nn - bw)
+        hi = np.minimum(mm, i1 * mm // nn + bw + 1)
+        out.append(int((hi - lo + 31).sum()))
+    return np.array(out)
+
+
+def profile_launch(entry, args_fn, steps: np.ndarray, reps: int, what: str) -> dict:
+    """One kernel's launch alone, entry(*args, stream) with (args, outputs,
+    buffers) = args_fn(clocks) and clocks a (B, 4) int64 tensor the kernel
+    fills (SM, start, sweep end, walk end): the median ms of reps launches
+    (CUDA events, after a warm-up) and, from the clocks, the SM cycles of
+    each case's sweep and walk, the sweep's cycles a step (the largest
+    case's and the median over cases) and the cases an SM held at most."""
+    dev = torch.device("cuda")
+    B = steps.size
+    clocks = torch.zeros((B, 4), dtype=torch.int64, device=dev)
+    args, out, hold = args_fn(clocks)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = entry(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
+
+    ms = median_ms(launch, reps)
+    c = clocks.cpu().numpy()
+    live = steps > 0
+    sweep, walk = (c[:, 2] - c[:, 1])[live], (c[:, 3] - c[:, 2])[live]
+    per = sweep / steps[live]
+    big = int(np.argmax(steps[live]))
+    sms = np.bincount(c[live, 0].astype(np.int64))
+    return {"launch_ms": ms, "sweep_cycles_max": int(sweep.max()),
+            "walk_cycles_max": int(walk.max()), "cycles_per_step_largest": float(per[big]),
+            "cycles_per_step_median": float(np.median(per)), "sms_used": int((sms > 0).sum()),
+            "cases_per_sm_max": int(sms.max())}

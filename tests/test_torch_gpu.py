@@ -539,14 +539,16 @@ def _train_batch(seed, rows, cols, clip, ints=False):
 
 # (rows, columns, ints) of each gap batch: ragged with empty, one-row and
 # one-column cases and rows past one stripe; tie-heavy; cases longer than
-# a warp's registers hold (several stripes of the largest instance); B=1;
-# B=37, a multiple of no per-block case count
+# a warp's registers hold (several 256-row stripes); B=1; B=37, a multiple
+# of no per-block case count; every case shorter than one lane's 8 rows or
+# than the lanes' 32 runs (the stripe starts above row 0)
 GAP_BATCHES = {
     "ragged": ([700, 0, 1, 37, 300, 5, 256], [900, 12, 40, 0, 280, 1, 257], False),
     "ties": ([700, 1, 37, 300, 64, 65], [900, 40, 33, 280, 64, 2], True),
     "long": ([2_500, 2_500, 700], [3_000, 1_200, 3_000], False),
     "one": ([689], [906], False),
     "odd": (list(range(5, 5 + 37 * 19, 19)), list(range(900, 900 - 37 * 23, -23)), True),
+    "short": ([1, 5, 8, 32, 31, 200], [40, 3, 17, 60, 1, 90], True),
 }
 
 
@@ -570,6 +572,27 @@ def test_gap_dtw_kernel_bitwise_vs_plain(cuda_device, gaps, batch):
     want = td.gap_sdtw_plain(x, y, n, m, *gaps)
     assert all(_same_bytes(a, b) for a, b in zip(got, want))
     assert int(got[4].max()) >= max(rows_n)
+
+
+@pytest.mark.gpu
+def test_gap_dtw_kernel_flags_lengths_past_the_padding(cuda_device):
+    """The gap wrapper leaves the lengths on the card: a case whose n or
+    m lies outside the padding gets end -1, end cost NaN and no path from
+    the kernel, the other cases their plain results."""
+    from sigfish_tpu_torch.ops import train_dtw as td
+
+    rows, cols = _train_batch(14, [40, 30, 20, 25], [50, 35, 10, 28], 3.5)
+    x, n = td.pack(rows, cuda_device)
+    y, m = td.pack(cols, cuda_device)
+    bad_n, bad_m = n.clone(), m.clone()
+    bad_n[1], bad_m[2] = x.shape[1] + 1, -1
+    end, end_cost, px, py, plen = got = td.gap_sdtw(x, y, bad_n, bad_m, 0.5, 0.25)
+    want = td.gap_sdtw_plain(x, y, n, m, 0.5, 0.25)
+    for b in (1, 2):
+        assert int(end[b]) == -1 and bool(torch.isnan(end_cost[b])) and int(plen[b]) == 0
+        assert bool((px[b] == -1).all()) and bool((py[b] == -1).all())
+    keep = torch.tensor([0, 3], device=cuda_device)
+    assert all(_same_bytes(a[keep], b[keep]) for a, b in zip(got, want))
 
 
 def _banded_batch(kind, slack):

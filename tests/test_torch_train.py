@@ -129,29 +129,72 @@ def test_banded_dtw_plain_ties_match_jax(kind):
         assert np.array_equal(paths[b][0], px) and np.array_equal(paths[b][1], py)
 
 
+# the banded kernel's source with a log of each stripe's swept steps T and
+# the stride S it gives a stripe's pointer words, for the emulation
+_NOTE_PRELUDE = r"""
+#include <mutex>
+static std::mutex emu_note_mu;
+static std::vector<long long> emu_note_log;
+static void emu_note(long long b, long long g, long long T, long long S) {
+  std::lock_guard<std::mutex> hold(emu_note_mu);
+  emu_note_log.insert(emu_note_log.end(), {b, g, T, S});
+}
+extern "C" long long emu_notes(long long* out, long long cap) {
+  std::lock_guard<std::mutex> hold(emu_note_mu);
+  const long long k = (long long)emu_note_log.size();
+  for (long long q = 0; q < k && q < cap; ++q) out[q] = emu_note_log[q];
+  emu_note_log.clear();
+  return k;
+}
+"""
+_NOTE_STRIPES = ((r"(const int T = bd\.hi\(min\(n - 1, i0 \+ 31\)\) - J0 \+ 31;)",
+                  r"\1 if (lane == 0) emu_note(b, g, T, S);"),)
+
+
+@pytest.fixture(scope="module")
+def banded_noted(tmp_path_factory):
+    import ctypes
+
+    from kernel_emu import build
+
+    lib = build(tmp_path_factory.mktemp("emu"), "banded_dtw", _NOTE_STRIPES, _NOTE_PRELUDE,
+                "_noted")
+    lib.emu_notes.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+    lib.emu_notes.restype = ctypes.c_longlong
+    return lib
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_banded_pointer_words_hold_every_stripe(seed):
-    """The banded wrapper's pointer words: every 32-row stripe's swept
-    steps (its first row's band start to its last row's band end, plus
-    the lag's 31) fit the stride csrc/banded_dtw.cu gives a stripe, the
-    case's stripes fit the words a case, and every row's band fits the
-    widest half band; at random shapes, bands and slacks, with extreme
-    n / m ratios among them."""
+def test_banded_pointer_words_hold_every_stripe(banded_noted, seed):
+    """The banded wrapper's pointer words, against the kernel's own
+    stripes: csrc/banded_dtw.cu run in the CPU emulation (tests/
+    kernel_emu.py) logs each 32-row stripe's swept steps and its stride;
+    every stripe's steps fit its stride and the case's stripes the words
+    the wrapper gave a case, and the outputs equal the plain version's; at
+    random shapes, bands and slacks, with extreme n / m ratios among
+    them."""
     rng = np.random.default_rng(seed)
-    n, m, band = (rng.integers(1, 3_000, 200) for _ in range(3))
-    n[:20], m[20:40], band[40:60] = rng.integers(1, 30, 20), rng.integers(1, 20, 20), 0
-    slack = int(rng.integers(1, 80))
-    words, bw_max = td._banded_sizes(n.astype(np.int32), m.astype(np.int32),
-                                     band.astype(np.int32), slack)
-    for nn, mm, bb in zip(n.tolist(), m.tolist(), band.tolist()):
-        bw = max(bb, slack + 8)
-        stride = min(mm, 2 * bw + 2 + 31 * mm // nn) + 31   # the kernel's stripe_stride
-        i0 = np.arange(0, nn, 32)
-        i1 = np.minimum(i0 + 31, nn - 1)
-        lo = np.maximum(0, i0 * mm // nn - bw)
-        hi = np.minimum(mm, i1 * mm // nn + bw + 1)
-        assert int((hi - lo + 31).max()) <= stride
-        assert i0.size * stride <= words and bw <= bw_max
+    ns = np.concatenate([rng.integers(1, 30, 4), rng.integers(200, 600, 3),
+                         rng.integers(1, 300, 5)])
+    ms = np.concatenate([rng.integers(300, 800, 4), rng.integers(1, 20, 3),
+                         rng.integers(1, 300, 5)])
+    bands = rng.integers(0, 60, ns.size)
+    bands[::4] = 0
+    slack = int(rng.integers(1, 40))
+    ev, n = td.pack(_ragged(rng, ns), "cpu")
+    lvl, m = td.pack(_ragged(rng, ms), "cpu")
+    band = torch.from_numpy(bands.astype(np.int32))
+    args, got, _ = td._banded_args(ev, lvl, n, m, band, slack, 0.5, 0.25, warps=2)
+    td._run(banded_noted.sf_banded_dtw, args, None, "banded_dtw")
+    notes = np.zeros(4 * 1_000, np.int64)
+    k = banded_noted.emu_notes(notes.ctypes.data, notes.size)
+    b, g, T, S = notes[:k].reshape(-1, 4).T
+    case_words = args[12]
+    assert sorted(zip(b.tolist(), g.tolist())) == [(c, q) for c in range(ns.size)
+                                                  for q in range(-(-int(ns[c]) // 32))]
+    assert (T <= S).all() and ((g + 1) * S <= case_words).all()
+    assert all(torch.equal(u, v) for u, v in zip(got, td.banded_dtw_plain(ev, lvl, n, m, band,
+                                                                           slack)))
 
 
 def test_empty_cases_leave_the_others_alone():
