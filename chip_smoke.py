@@ -5,15 +5,15 @@
 
 Run from the root of a checkout, on a machine with one Hopper GPU
 (compute capability 9.0), nvcc and g++. It builds the port's kernels from
-the checkout's sources, then runs twelve phases, and fails (exit code 1,
+the checkout's sources, then runs thirteen phases, and fails (exit code 1,
 no result line) if any of them fails:
 
   1. device   CUDA present with capability (9, 0); prints the card's
               name and power limit, torch's CUDA and nvcc's versions,
               and the f32 issue rate every bound is computed at (SMs x
               128 instructions per clock x the maximum SM clock)
-  2. build    the wavefront, ALU-probe, events, polyA, gap-DTW and
-              banded-DTW kernels (nvcc,
+  2. build    the wavefront, ALU-probe, events, polyA, gap-DTW,
+              banded-DTW and scan kernels (nvcc,
               sm_90a, one process each, started together; ptxas'
               registers and spills of every Q=512 instance, a summary of
               the rest) and
@@ -233,6 +233,28 @@ no result line) if any of them fails:
               the card's name and power limit), and holds the
               card's tables over the first 16 reads of each (2
               iterations each) bit for bit to the port's CPU run.
+  13. engines the engine choice (--engine pallas|scan|native, --accel):
+              the scan kernel (csrc/scan.cu) bit for bit against its
+              plain version on B=64 (one read in three clipped, one of
+              qlen 0), one-shot at Q=256 over 20,000 of phase 4's columns
+              and at Q=512 over phase 7's first 24,576, std at Q=512, and
+              a carry chain of three uneven segments against the one-shot
+              launch; its launch timed at B=512 over phase 4's whole
+              reference (Q=256) and phase 7's (Q=512), each held to one
+              plain run (whose ms is printed), beside its bound (the
+              function's 8 operations a cell, and the 10 the kernel
+              issues); phase 4's and phase 7's workloads on the scan
+              engine (the launches counted, no wavefront, the lines
+              differing from the default engine's PAF printed, the
+              mapped share gated, the first 128 and 64 reads
+              byte-identical to the port's CPU scan); --engine native
+              over phase 4's reads byte-identical to the default engine
+              with no launch;
+              --accel yes the default's
+              PAF, --accel no the scan's; and the scan on --mesh 2x1
+              (tracks) and 1x4 (ring) over the card listed once per
+              shard, each byte-identical to the single-device scan.
+              Prints each engine's reads/s.
 
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -275,6 +297,7 @@ N7_TX = 160
 N7_READS = 1_536
 TX_LEN = (600, 7_000)   # transcript lengths: both sides of gen_ref's min(750, L-4)
 SUBSET7 = 64            # reads checked byte for byte against the CPU path
+SUBSET13 = 128          # phase 13: phase 4's reads on the scan engine, card vs CPU
 CUT3_DIAGS = 24_576     # phase 3's Q=512 checks: the RNA reference's first diagonals
 
 # phase 10: --mesh over the card listed once per shard (a stream each)
@@ -2689,6 +2712,192 @@ def main() -> None:
         if not ok:
             fail("the card's trained tables differ from the CPU run's")
 
+        # ------------------------------------------------------------ 13
+        phase("13 engines")
+        from sigfish_tpu_torch.ops import sdtw_scan as ssm
+
+        t13 = time.time()
+
+        def scan_batch(seed, B, Q, W_, every):
+            """B seeded reads of Q samples, one in `every` clipped (qlen
+            25 .. W-1) and the last of qlen 0: (queries, one-hot) on the
+            card."""
+            rng13 = np.random.default_rng(seed)
+            ql = np.full(B, W_, np.int32)
+            ql[every - 1 :: every] = rng13.integers(25, W_, size=ql[every - 1 :: every].size)
+            ql[-1] = 0
+            qb_, _, oh_ = layout.make_query_batch(
+                [rng13.standard_normal(int(x)).astype(np.float32) for x in ql], pad_q=Q)
+            return torch.from_numpy(qb_).to(dev), torch.from_numpy(oh_).to(dev)
+
+        def scan_ref(st):
+            return (torch.from_numpy(st.ref_cat).to(dev), torch.from_numpy(st.reset).to(dev))
+
+        y4, r4 = scan_ref(state)
+        y7, r7 = scan_ref(state7)
+        # the kernel against its plain version, each mode on B=64 (one read
+        # in three clipped, one of qlen 0): Q=256 over phase 4's columns
+        # 20,000 .. 40,000 (the '-' track's start, a reset, inside), Q=512
+        # one-shot and std over phase 7's first CUT3_DIAGS columns (a reset
+        # every ~1,000), and a carry chain of three uneven segments
+        q64, oh64 = scan_batch(SEED + 13, 64, pad_q, W, 3)
+        q64r, oh64r = scan_batch(SEED + 14, 64, pad_q7, W7, 3)
+        cut4 = (y4[20_000:40_000], r4[20_000:40_000])
+        cut7 = (y7[:CUT3_DIAGS], r7[:CUT3_DIAGS])
+        if not (bool(cut4[1].any()) and int(cut7[1].sum()) > 1):
+            fail("phase 13's reference cuts hold no reset")
+        scan_err = 0.0
+        whole4 = None
+        for label, q_, oh_, (y_, r_), std_ in (
+            (f"one-shot Q={pad_q}", q64, oh64, cut4, False),
+            (f"one-shot Q={pad_q7}", q64r, oh64r, cut7, False),
+            (f"std Q={pad_q7}", q64r, oh64r, cut7, True),
+        ):
+            got = ssm.sdtw_scan(q_, oh_, y_, r_, std=std_)
+            want = ssm.scan_plain(q_, oh_, y_, r_, std=std_)
+            whole4 = got if whole4 is None else whole4
+            scan_err = max(scan_err, hold_plain(
+                f"the scan kernel, {label}, B=64 over {y_.shape[0]} columns ({int(r_.sum())} "
+                f"resets; final column too)", got, want, masks=(slice(None),)))
+        init13, parts13 = None, []
+        n4c = cut4[0].shape[0]
+        for a, b in ((0, 4_321), (4_321, 4_322), (4_322, n4c)):
+            lr_, init13 = ssm.sdtw_scan(q64, oh64, cut4[0][a:b], cut4[1][a:b], init=init13)
+            parts13.append(lr_)
+        ok = bits_equal(torch.cat(parts13, 1), whole4[0]) and bits_equal(init13, whole4[1])
+        print(f"the scan kernel's carry mode, three segments of 4,321, 1 and {n4c - 4_322} "
+              f"columns chained: bitwise_equal to the one-shot launch={ok}")
+        if not ok:
+            fail("the scan kernel's chained segments differ from its one-shot launch")
+
+        # the launch at the main path's shapes, timed and held to one plain
+        # run each: B=512 over phase 4's whole reference at Q=256 and over
+        # phase 7's at Q=512. The bound counts the function's operations a
+        # cell; the kernel's split into runs issues RUN_OPS_PER_CELL more,
+        # printed as a second bound beside it
+        def scan_times(label, seed, Q, W_, y_, r_):
+            q_, oh_ = scan_batch(seed, BATCH, Q, W_, 10)
+            ms_, got = median_ms_out(lambda: ssm.sdtw_scan(q_, oh_, y_, r_), 3)
+            plain_ms_, want = once_ms(lambda: ssm.scan_plain(q_, oh_, y_, r_))
+            err = hold_plain(f"the scan kernel at {label}, B={BATCH}, Q={Q}, R={y_.shape[0]}",
+                             got, want, masks=(slice(None),))
+            del got, want
+            R_ = y_.shape[0]
+            cells = BATCH * Q * R_
+            moved = 4 * BATCH * Q * 2 + 4 * BATCH + 5 * R_ + 4 * BATCH * R_
+            b_ms, b_by = bound(ssm.OPS_PER_CELL * cells, moved, issue)
+            bi_ms, _ = bound((ssm.OPS_PER_CELL + ssm.RUN_OPS_PER_CELL) * cells, moved, issue)
+            cyc = ms_ * 1e-3 * clk_max * 1e6 / R_
+            print(f"  {ms_:.3f} ms a launch ({cells / ms_ / 1e6:.1f} Gcell/s, {cyc:.1f} SM cycles a "
+                  f"column at the max clock), bound {b_ms:.3f} ms by {b_by} "
+                  f"({ssm.OPS_PER_CELL} operations a cell; share {b_ms / ms_:.3f}; at the "
+                  f"{ssm.OPS_PER_CELL + ssm.RUN_OPS_PER_CELL} the kernel issues {bi_ms:.3f} ms), "
+                  f"plain {plain_ms_:.1f} ms; card: {smi}")
+            return dict(ms=ms_, plain_ms=plain_ms_, bound_ms=b_ms, bound_by=b_by, err=err,
+                        bound_ms_issued=bi_ms, cycles_per_column=cyc)
+
+        st4 = scan_times("phase 4's reference", SEED + 15, pad_q, W, y4, r4)
+        st7 = scan_times("phase 7's reference", SEED + 16, pad_q7, W7, y7, r7)
+        scan_err = max(scan_err, st4["err"], st7["err"])
+        del y4, r4, y7, r7, q64, oh64, q64r, oh64r, cut4, cut7, whole4, parts13, init13
+
+        def engine_run(label, fa_, bl_, want_default, truth_, gate, **kw):
+            """run_dtw on the card on an engine (kw): its PAF, Core,
+            seconds and launch counts (set to 0 just before), the lines
+            that differ from the default engine's PAF and the share
+            mapped over the reads' origins, printed."""
+            reset_counts()
+            ssm.sdtw_scan.launches = ssm.sdtw_scan.launches_std = 0
+            plain0 = (wfm.wavefront_plain.calls, ssm.scan_plain.calls)
+            out, c, dt_ = run_port(fa_, bl_, "cuda", **kw)
+            n = dict(scan=ssm.sdtw_scan.launches, wavefront=wfm.sdtw_wavefront.launches,
+                     carry=wfm.sdtw_wavefront_carry.launches,
+                     plain=wfm.wavefront_plain.calls - plain0[0] + ssm.scan_plain.calls - plain0[1])
+            a_ = {ln.split("\t")[0]: ln for ln in out.splitlines()}
+            b_ = {ln.split("\t")[0]: ln for ln in want_default.splitlines()}
+            diff = sum(a_.get(k) != b_.get(k) for k in set(a_) | set(b_))
+            share_ = overlap_share(out, truth_)
+            print(f"{label}: engine {c.engine}, {c.total_reads} reads, {dt_:.3f} s, "
+                  f"{c.total_reads / dt_:.1f} reads/s end to end; launches {n}; lines differing "
+                  f"from the default engine's PAF: {diff} of {len(b_)}; mapped over their origin "
+                  f"{share_:.4f}; card: {smi}")
+            if n["plain"]:
+                fail(f"{label}: {n['plain']} plain sweeps ran during the card run")
+            if share_ < gate:
+                fail(f"{label}: only {share_:.4f} of the reads map over their origin")
+            return out, c, dt_, n, diff
+
+        # phase 4's workload at full width on the scan engine, and its first
+        # SUBSET13 reads held byte for byte to the port's CPU scan
+        paf13, c13, dt13, n13, diff13 = engine_run("phase 4, --engine scan", fa, bl, paf, truth,
+                                                   0.8, state=state, engine="scan")
+        launches13 = n13["scan"]
+        if launches13 <= 0 or n13["wavefront"] or n13["carry"] or c13.total_reads != N_READS:
+            fail(f"phase 4 on the scan engine: launches {n13}, {c13.total_reads} reads")
+        keep13 = [f"read{i:05d}" for i in range(SUBSET13)]
+        sub13 = os.path.join(work, "subset13.blow5")
+        subset_blow5(bl, sub13, set(keep13))
+        cpu13, _, cpu_dt13 = run_port(fa, sub13, "cpu", state=state, engine="scan")
+        ok = cpu13 == lines_of(paf13, keep13)
+        print(f"PAF of {SUBSET13} reads on the scan engine, cpu vs cuda: byte_identical={ok} "
+              f"(cpu {cpu_dt13:.1f} s)")
+        if not ok:
+            fail("the scan engine's PAF on the card differs from the CPU path's")
+
+        # phase 7's workload (Q=512) on the scan engine, the same way
+        paf13r, c13r, dt13r, n13r, diff13r = engine_run(
+            "phase 7, --engine scan", fa7, bl7, paf7, truth7, 0.75, state=state7, engine="scan",
+            **RNA_OPT)
+        launches13r = n13r["scan"]
+        if launches13r <= 0 or n13r["wavefront"] or c13r.routes["clip_pass"] <= 0:
+            fail(f"phase 7 on the scan engine: launches {n13r}, routes {c13r.routes}")
+        cpu13r, _, cpu_dt13r = run_port(fa7, sub7, "cpu", state=state7, engine="scan", **RNA_OPT)
+        ok = cpu13r == lines_of(paf13r, keep7)
+        print(f"PAF of {SUBSET7} RNA reads on the scan engine, cpu vs cuda: byte_identical={ok} "
+              f"(cpu {cpu_dt13r:.1f} s)")
+        if not ok:
+            fail("the RNA scan engine's PAF on the card differs from the CPU path's")
+
+        # the native engine (exact, on the host) over phase 4's reads, and
+        # --accel over phase 4
+        paf13n, _, dt13n, n13n, diff13n = engine_run(
+            "phase 4, --engine native", fa, bl, paf, truth, 0.8, state=state, engine="native")
+        if paf13n != paf or any(n13n.values()):
+            fail(f"the native engine's PAF differs from the default's ({diff13n} lines) or it "
+                 f"launched a kernel: {n13n}")
+        accel13 = {}
+        for accel, want_, tag in ((True, paf, "default"), (False, paf13, "--engine scan")):
+            out_, c_, dt_, n_, _ = engine_run(f"phase 4, --accel {'yes' if accel else 'no'}", fa,
+                                              bl, paf, truth, 0.8, state=state, use_pallas=accel)
+            ok = out_ == want_
+            print(f"  byte_identical to the {tag} run={ok}")
+            if not ok:
+                fail(f"--accel {'yes' if accel else 'no'} differs from the {tag} run")
+            accel13["yes" if accel else "no"] = dt_
+
+        # the scan on the mesh over the card listed once per shard: tracks
+        # mode (2x1) and ring mode (1x4, 2 tracks < 4) over phase 4
+        launches13m = 0
+        for mesh13, mode13 in ((MESH_DNA, "tracks"), ("1x4", "ring")):
+            n_dev13 = int(np.prod([int(x) for x in mesh13.split("x")]))
+            out_, c_, dt_, n_, _ = engine_run(
+                f"phase 4, --engine scan --mesh {mesh13}", fa, bl, paf, truth, 0.8, state=state,
+                engine="scan", mesh=mesh13, mesh_devices=["cuda:0"] * n_dev13)
+            route13 = "mesh_tracks" if mode13 == "tracks" else "ring"
+            ok = out_ == paf13
+            print(f"  {c_.mesh_mode} mode, routes {c_.routes}, Rs={c_.shard_Rs}: byte_identical "
+                  f"to the single-device scan={ok}")
+            if not ok or c_.mesh_mode != mode13 or c_.routes[route13] <= 0 or n_["wavefront"]:
+                fail(f"the scan on --mesh {mesh13} differs from the single-device scan or ran "
+                     f"another route: {c_.mesh_mode}, {c_.routes}, {n_}")
+            launches13m += n_["scan"]
+        print(f"phase 4 reads/s by engine: default {N_READS / dt4:.1f}, scan {N_READS / dt13:.1f}, "
+              f"native {N_READS / dt13n:.1f}, --accel yes "
+              f"{N_READS / accel13['yes']:.1f}, "
+              f"--accel no {N_READS / accel13['no']:.1f}; phase 7: default "
+              f"{N7_READS / dt7:.1f}, scan {N7_READS / dt13r:.1f}; phase 13 took "
+              f"{time.time() - t13:.1f} s; card: {smi}")
+
         # the carry entry times the instance phase 6 launched (every launch
         # with start lanes, checked above); the start lanes add B i32 reads
         c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes + 4 * BATCH, issue)
@@ -2857,6 +3066,30 @@ def main() -> None:
                 "cycles_per_step": banded_prof["cycles_per_step_largest"],
                 "walk_cycles": banded_prof["walk_cycles_max"],
                 "chain_floor_ms": banded_floor_ms,
+            },
+            {
+                "name": "sdtw_scan",
+                "route": "cuda",
+                "source": "sigfish_tpu_torch/csrc/scan.cu",
+                "replaces": "sigfish_tpu/ops/sdtw.py:82",
+                "launches": launches13,
+                "launches_rna": launches13r,
+                "launches_mesh": launches13m,
+                "max_abs_err": scan_err,
+                "ms": st4["ms"],
+                "plain_ms": st4["plain_ms"],
+                "bound_ms": st4["bound_ms"],
+                "bound_by": st4["bound_by"],
+                "library_ms": None,
+                "bound_ms_issued": st4["bound_ms_issued"],
+                "cycles_per_column": st4["cycles_per_column"],
+                "ms_q512": st7["ms"],
+                "plain_ms_q512": st7["plain_ms"],
+                "bound_ms_q512": st7["bound_ms"],
+                "bound_ms_issued_q512": st7["bound_ms_issued"],
+                "bound_by_q512": st7["bound_by"],
+                "cycles_per_column_q512": st7["cycles_per_column"],
+                "ptxas": ptxas_table(reports["scan"]),
             },
         ]}
     finally:

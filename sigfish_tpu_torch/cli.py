@@ -7,10 +7,15 @@ device, on one device or over a --mesh grid of them, in one process or
 over a cluster of host processes (--hosts/--host-id/--coordinator, each
 mapping a contiguous record range and host 0 writing the merged output;
 parallel/distributed.py) or one record stripe (--shard I/N), and
---trace DIR writes a torch.profiler trace of the run. --accel and
---engine choose among the JAX package's engines; the port picks its
-path with --device, so an explicit value of either is an error that
-names --device.
+--trace DIR writes a torch.profiler trace of the run. --engine and
+--accel choose the sDTW engine with the JAX package's precedence
+(--engine by name, else --accel yes for pallas and no for scan):
+pallas runs the wavefront kernel (csrc/wavefront.cu), scan the column
+scan (csrc/scan.cu), native the exact host DP on the thread pool (with
+--mesh the scan, as in the JAX package); with neither flag the port runs
+the wavefront kernel. --device picks the card (the CUDA kernels) or the
+CPU (their plain PyTorch versions); a kernel that fails to build or
+launch on the card raises.
 
 ref: sigfish src/main.c (dispatch), src/dtw_main.c, src/eval.c:380-445.
 """
@@ -75,8 +80,8 @@ def make_dtw_parser(prog: str = "sigfish_tpu_torch dtw") -> argparse.ArgumentPar
     p.add_argument("--full-ref", action="store_true", help="map to the full reference (RNA only)")
     p.add_argument("--from-end", action="store_true", help="map the end portion of the query")
     p.add_argument("--profile-cpu", type=_yes_no, default=False, metavar="yes|no", help="process section by section with per-stage timers")
-    p.add_argument("--accel", type=_yes_no, default=None, metavar="yes|no", help="the JAX package's engine choice; this port uses --device instead")
-    p.add_argument("--engine", choices=["pallas", "scan", "native"], default=None, help="the JAX package's engine choice; this port uses --device instead")
+    p.add_argument("--accel", type=_yes_no, default=None, metavar="yes|no", help="yes: the pallas engine, no: the scan engine (--engine wins) [the wavefront kernel]")
+    p.add_argument("--engine", choices=["pallas", "scan", "native"], default=None, help="the sDTW engine: pallas the wavefront kernel, scan the column-scan kernel, native the exact host DP on the thread pool (with --mesh the scan) [the wavefront kernel]")
     p.add_argument("--host-stages", choices=["host", "device"], default="host", help="where eventization (and the RNA -p -1 polyA scan) runs: host, per read on the thread pool, or device, per batch on the CUDA kernels (their plain versions with --device cpu) [host]")
     p.add_argument("--ref-chunk", type=int, default=0, metavar="INT", help="reference-axis chunking: 0 auto (past 2^20 columns), -1 never, N>0 always, in segments of about N diagonals [0]")
     p.add_argument("-a", "--sam", action="store_true", help="output in SAM format")
@@ -95,7 +100,7 @@ def make_dtw_parser(prog: str = "sigfish_tpu_torch dtw") -> argparse.ArgumentPar
 def kernel_launches() -> dict[str, int]:
     """Each hand kernel's launch count in this process (its wrapper's
     counter)."""
-    from .ops import alu_peak, events_device, jnn_device, sdtw_wavefront
+    from .ops import alu_peak, events_device, jnn_device, sdtw_scan, sdtw_wavefront
 
     return {
         "sdtw_wavefront": sdtw_wavefront.sdtw_wavefront.launches,
@@ -103,6 +108,7 @@ def kernel_launches() -> dict[str, int]:
         "alu_peak": alu_peak.alu_peak.launches,
         "events": events_device.detect_peaks.launches,
         "polya_end": jnn_device.polya_end.launches,
+        "sdtw_scan": sdtw_scan.sdtw_scan.launches,
     }
 
 
@@ -170,14 +176,6 @@ def dtw_main(argv: list[str]) -> int:
     from .output import sam_header
     from .runtime.pipeline import Core, Options, run_dtw
 
-    for flag, value in (("--accel", args.accel), ("--engine", args.engine)):
-        if value is not None:
-            raise ValueError(
-                f"{flag} chooses among the JAX package's engines; this port picks "
-                "its path with --device (cuda: the CUDA kernels, cpu: their plain "
-                "PyTorch versions)"
-            )
-
     opt = Options(
         batch_size=args.batchsize,
         batch_size_bytes=args.max_bytes,
@@ -198,6 +196,8 @@ def dtw_main(argv: list[str]) -> int:
         ckpt=args.ckpt,
         mesh=args.mesh,
         host_stages=args.host_stages,
+        engine=args.engine,
+        use_pallas=args.accel,
         ref_chunk=args.ref_chunk,
         device=args.device,
     )

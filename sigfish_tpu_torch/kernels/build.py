@@ -33,7 +33,7 @@ NVCC_FLAGS = [
 ]
 
 # one source csrc/<name>.cu per kernel
-KERNELS = ("wavefront", "alu_peak", "events", "polya", "gap_dtw", "banded_dtw")
+KERNELS = ("wavefront", "alu_peak", "events", "polya", "gap_dtw", "banded_dtw", "scan")
 
 
 def nvcc_path() -> str:

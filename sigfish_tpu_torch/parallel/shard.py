@@ -32,11 +32,15 @@ shards, a carry or a payload, waits on an event recorded on the
 producer's stream (hand_off); none relies on the order of a shared
 stream. On the CPU there are no streams and the work runs in order.
 
-The scan-engine variants and full-row oracles of the JAX module
+Both modes run either engine of the JAX module: the wavefront kernels
+(the default, --engine pallas) or the column scan (--engine scan, and
+--engine native with a mesh, as in the JAX Core): sharded_topk(...,
+scan=True) is sharded_engine_topk's scan branch, ring_topk_scan the JAX
+package's ring_topk_scan, the carry column (B / n_micro, Q) handed from
+shard to shard. The JAX module's dry-run helpers and full-row oracles
 (sharded_sdtw, sharded_sdtw_step, ring_fullref_lastrow,
-ring_fullref_lastrow_wavefront, ring_topk_scan) are not ported: the
-port has no scan engine, and the engines here are held to the JAX
-package's wavefront engines directly.
+ring_fullref_lastrow_wavefront) are not ported: no route runs them, and
+the engines here are held to the JAX package's top-k engines directly.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from ..ops.candidates_dev import (
     window_top5,
 )
 from ..ops.chunked_ref import CHUNK_AUTO_COLS, ShardFold
+from ..ops.sdtw_scan import onehot_rows, sdtw_scan
 from ..ops.sdtw_wavefront import carry_fresh_state, sdtw_wavefront, sdtw_wavefront_carry
 
 
@@ -201,7 +206,7 @@ def _globalize(tp: torch.Tensor, off: int) -> torch.Tensor:
 
 
 def sharded_topk(
-    queries: np.ndarray,   # (B, Q) f32 through shift_queries_for_clip; B a multiple of n_dp
+    queries: np.ndarray,   # (B, Q) f32 (wavefront: through shift_queries_for_clip); B a multiple of n_dp
     qlens: np.ndarray,     # (B,) i32
     bufs: list[list[tuple]],
     mesh: list[list[torch.device]],
@@ -209,19 +214,24 @@ def sharded_topk(
     Rs: int,
     lane: int,
     k: int = 5,
+    scan: bool = False,
 ) -> list[torch.Tensor]:
-    """The tracks engine: the JAX package's sharded_engine_topk on its
-    wavefront branch with clip_shift.
+    """The tracks engine: the JAX package's sharded_engine_topk, on its
+    wavefront branch with clip_shift or, with scan=True, on its scan
+    branch.
 
     bufs[i][s]: shard s's (ypad (1, D), rspad (1, D), u (Rs,) i32, valid
-    (Rs,) bool) on mesh[i][s], in shard_tracks' layout; streams:
+    (Rs,) bool) on mesh[i][s], in shard_tracks' layout; with scan=True
+    (ref (Rs,) f32, reset (Rs,) bool, u, valid). streams:
     shard_streams(mesh). Grid row i takes rows [i*B/n_dp, (i+1)*B/n_dp).
     Each shard runs the one-shot kernel (clipped reads from their start
-    lanes W - qlen), slices the last row [lane, lane + Rs), reduces it to
-    the W-window top-k (window_top5) and the per-read-window top-k
-    (topk_candidates), and makes the positions global (+ s * Rs). Returns
-    one packed (B / n_dp, 4k) tensor per grid row, on the row's first
-    device: [:, :2k] serves full-length reads, [:, 2k:] clipped ones."""
+    lanes W - qlen) and slices the last row [lane, lane + Rs), or runs the
+    scan over its columns (the unshifted queries, each row's last row
+    picked at qlen - 1), reduces it to the W-window top-k (window_top5)
+    and the per-read-window top-k (topk_candidates), and makes the
+    positions global (+ s * Rs). Returns one packed (B / n_dp, 4k) tensor
+    per grid row, on the row's first device: [:, :2k] serves full-length
+    reads, [:, 2k:] clipped ones."""
     n_dp, n_tp = len(mesh), len(mesh[0])
     Bd = queries.shape[0] // n_dp
     W = lane + 1
@@ -237,8 +247,11 @@ def sharded_topk(
             with _on(dev, streams[i][s]):
                 q = torch.from_numpy(q_h).to(dev)
                 ql = torch.from_numpy(ql_h).to(dev)
-                sl = torch.from_numpy(sl_h).to(dev) if sl_h.any() else None
-                lr = sdtw_wavefront(q, yp, rp, lane, start_lanes=sl)[:, lane : lane + Rs]
+                if scan:
+                    lr, _ = sdtw_scan(q, onehot_rows(ql, q.shape[1], dev), yp, rp)
+                else:
+                    sl = torch.from_numpy(sl_h).to(dev) if sl_h.any() else None
+                    lr = sdtw_wavefront(q, yp, rp, lane, start_lanes=sl)[:, lane : lane + Rs]
                 ts_m, tp_m = window_top5(lr, valid, Rs, W, k, reindex=False)
                 ts_c, tp_c = topk_candidates(lr, ql, u, valid, Rs, k, reindex=False)
                 payloads.append(torch.cat(
@@ -295,6 +308,55 @@ def _ring_extract_merge(gathered: torch.Tensor, n_tp: int, k: int) -> torch.Tens
     return _pack(*select_topk_cands(torch.cat([sc5, bm], 1), torch.cat([pp5, bp], 1), k))
 
 
+def _ring_run(
+    devices: list[torch.device],
+    streams: list,
+    B: int,
+    n_micro: int,
+    k: int,
+    upload,
+    step,
+) -> torch.Tensor:
+    """The ring's microbatch pipeline, shared by both engines.
+
+    upload(s) puts the batch's inputs on devices[s]; step(s, m, rows, up,
+    carry) runs microbatch m (rows of the batch) on shard s from the
+    carry shard s-1 handed on for it (None on shard 0) and returns its
+    shard frame (wmin, wpos) and its outgoing carry, a list of tensors.
+    Both run on shard s's stream. At step t shard s runs microbatch t - s,
+    so on distinct cards shard s+1 works on microbatch m-1 while shard s
+    works on m; each carry reaches the next shard through hand_off.
+    Returns the packed (B, 2k) on devices[0]."""
+    n_tp = len(devices)
+    Bm = B // n_micro
+    ups = []
+    for s in range(n_tp):
+        with _on(devices[s], streams[s]):
+            ups.append(upload(s))
+    frames = [[None] * n_micro for _ in range(n_tp)]
+    incoming = {}
+    for t in range(n_micro + n_tp - 1):
+        # shards from the last one: a hand-off to shard s+1 then queues
+        # behind that shard's work of this step, not ahead of it
+        for s in reversed(range(n_tp)):
+            m = t - s
+            if not 0 <= m < n_micro:
+                continue
+            with _on(devices[s], streams[s]):
+                frames[s][m], carry = step(s, m, slice(m * Bm, (m + 1) * Bm), ups[s],
+                                           incoming.pop((s, m), None))
+            if s + 1 < n_tp:
+                incoming[(s + 1, m)] = hand_off(carry, streams[s], devices[s + 1],
+                                                streams[s + 1])
+    payloads = []
+    for s in range(n_tp):
+        with _on(devices[s], streams[s]):
+            wmin = torch.cat([f[0] for f in frames[s]])
+            wpos = torch.cat([f[1] for f in frames[s]])
+            payloads.append(_ring_payload(wmin, wpos, k))
+    return _ring_extract_merge(_gather(payloads, streams, devices[0]), n_tp, k)
+
+
 def ring_topk(
     queries: np.ndarray,      # (B, Q) f32 through shift_queries_for_clip
     start_lanes: np.ndarray,  # (B,) i32
@@ -315,52 +377,82 @@ def ring_topk(
     mask moved up by lane, as the kernel emits column c at diagonal c +
     lane); streams: one per shard (shard_streams).
 
-    The batch runs as n_micro microbatches of B / n_micro rows. At step
-    t shard s runs microbatch t - s through its sub-chunks, each one
-    carry launch folded into the shard's ShardFold: from a fresh state
-    on shard 0, from shard s-1's outgoing state for the same microbatch
-    otherwise. So on distinct cards shard s+1 works on microbatch m-1
-    while shard s works on m. The launches with every start lane 0 take
-    none (the kernel's faster instance, the same scores). Returns the
-    packed (B, 2k) on devices[0]."""
-    n_tp = len(devices)
+    The batch runs as n_micro microbatches of B / n_micro rows through
+    _ring_run: shard s runs a microbatch through its sub-chunks, each one
+    carry launch folded into the shard's ShardFold, from a fresh state on
+    shard 0, from shard s-1's outgoing state for the same microbatch
+    otherwise. The launches with every start lane 0 take none (the
+    kernel's faster instance, the same scores). Returns the packed (B,
+    2k) on devices[0]."""
     B, Q = queries.shape
     Bm = B // n_micro
-    q_dev, fs_dev = [], []
-    for s in range(n_tp):
-        with _on(devices[s], streams[s]):
-            q_dev.append(torch.from_numpy(np.ascontiguousarray(queries)).to(devices[s]))
-            fs_dev.append(torch.from_numpy(start_lanes.astype(np.int32)).to(devices[s]))
     clipped = [bool(start_lanes[m * Bm : (m + 1) * Bm].any()) for m in range(n_micro)]
-    frames = [[None] * n_micro for _ in range(n_tp)]
-    incoming = {}
-    for t in range(n_micro + n_tp - 1):
-        # shards from the last one: a hand-off to shard s+1 then queues
-        # behind that shard's work of this step, not ahead of it
-        for s in reversed(range(n_tp)):
-            m = t - s
-            if not 0 <= m < n_micro:
-                continue
-            dev, st = devices[s], streams[s]
-            yps, rps, vds = bufs[s]
-            rows = slice(m * Bm, (m + 1) * Bm)
-            with _on(dev, st):
-                qm = q_dev[s][rows]
-                fsm = fs_dev[s][rows] if clipped[m] else None
-                state = carry_fresh_state(Bm, Q, dev) if s == 0 else incoming.pop((s, m))
-                fold = ShardFold(Bm, vds, W, s * Rs)
-                for c in range(yps.shape[0]):
-                    o, *state = sdtw_wavefront_carry(
-                        qm, yps[c], rps[c], *state, lane, start_lanes=fsm,
-                    )
-                    fold.update(c, o)
-                frames[s][m] = fold.frame()
-            if s + 1 < n_tp:
-                incoming[(s + 1, m)] = hand_off(state, st, devices[s + 1], streams[s + 1])
-    payloads = []
-    for s in range(n_tp):
-        with _on(devices[s], streams[s]):
-            wmin = torch.cat([f[0] for f in frames[s]])
-            wpos = torch.cat([f[1] for f in frames[s]])
-            payloads.append(_ring_payload(wmin, wpos, k))
-    return _ring_extract_merge(_gather(payloads, streams, devices[0]), n_tp, k)
+
+    def upload(s):
+        return (torch.from_numpy(np.ascontiguousarray(queries)).to(devices[s]),
+                torch.from_numpy(start_lanes.astype(np.int32)).to(devices[s]))
+
+    def step(s, m, rows, up, state):
+        yps, rps, vds = bufs[s]
+        qm = up[0][rows]
+        fsm = up[1][rows] if clipped[m] else None
+        if state is None:
+            state = carry_fresh_state(Bm, Q, devices[s])
+        fold = ShardFold(Bm, vds, W, s * Rs)
+        for c in range(yps.shape[0]):
+            o, *state = sdtw_wavefront_carry(qm, yps[c], rps[c], *state, lane, start_lanes=fsm)
+            fold.update(c, o)
+        return fold.frame(), state
+
+    return _ring_run(devices, streams, B, n_micro, k, upload, step)
+
+
+def ring_topk_scan(
+    queries: np.ndarray,      # (B, Q) f32, unshifted
+    qlens: np.ndarray,        # (B,) i32
+    bufs: list[tuple],
+    devices: list[torch.device],
+    streams: list,
+    n_micro: int,
+    W: int,
+    Rs: int,
+    k: int = 5,
+) -> torch.Tensor:
+    """The ring engine on the column scan: the JAX package's
+    ring_topk_scan.
+
+    bufs[s]: shard s's (ref (Rs,) f32, reset (Rs,) bool, valid (Rs,)
+    bool), its columns [s*Rs, (s+1)*Rs) of the ring layout (Rs a multiple
+    of W); streams: one per shard (shard_streams). The same microbatch
+    pipeline as ring_topk (_ring_run): shard s scans a microbatch over its
+    columns, from a BIG column on shard 0, from the final column (B /
+    n_micro, Q) that shard s-1 handed on for the same microbatch
+    otherwise. The row is column-indexed, so each of the shard's Rs / W
+    windows is whole: its frame's slot 0 stays empty and its last window
+    meets the next shard's empty slot 0 in _ring_extract_merge. Each
+    row's last row is picked at qlen - 1, so clipped rows get theirs
+    (their per-read windows are the caller's). Returns the packed (B,
+    2k) on devices[0]."""
+    B, Q = queries.shape
+    Bm = B // n_micro
+    nw = Rs // W
+
+    def upload(s):
+        return (torch.from_numpy(np.ascontiguousarray(queries)).to(devices[s]),
+                onehot_rows(qlens, Q, devices[s]))
+
+    def step(s, m, rows, up, carry):
+        dev = devices[s]
+        ref, reset, valid = bufs[s]
+        init = None if carry is None else carry[0]
+        lr, col = sdtw_scan(up[0][rows], up[1][rows], ref, reset, init=init)
+        wsc = torch.where(valid[None, :], lr, BIG).reshape(Bm, nw, W)
+        amin = torch.argmin(wsc, dim=2)  # the first minimum wins
+        pmin = wsc.gather(2, amin[:, :, None])[:, :, 0]
+        ppos = (s * Rs + torch.arange(nw, dtype=torch.int32, device=dev)[None, :] * W
+                + amin.to(torch.int32))
+        frame = (torch.cat([torch.full((Bm, 1), BIG, device=dev), pmin], dim=1),
+                 torch.cat([torch.full((Bm, 1), -1, dtype=torch.int32, device=dev), ppos], dim=1))
+        return frame, [col]
+
+    return _ring_run(devices, streams, B, n_micro, k, upload, step)

@@ -31,8 +31,24 @@ with its names and order kept:
 
 Device selection: Options.device ("cuda" by default). CUDA tensors go
 through the kernel, CPU tensors (device="cpu") through its plain
-PyTorch version. There is no engine choice and no silent fallback:
-Core raises when CUDA is asked for and absent.
+PyTorch version. There is no silent fallback: Core raises when CUDA is
+asked for and absent, and a kernel that fails to build or launch raises.
+
+Engine choice: the JAX Core's three engines, by its precedence
+(Options.engine by name, else Options.use_pallas, --accel: True picks
+pallas, False scan). With neither set the port keeps the wavefront
+kernel ("pallas"); it does not take the JAX Core's platform rule.
+  pallas   the wavefront kernel, as above
+  scan     the column scan (csrc/scan.cu via ops/sdtw_scan.py) over the
+           whole reference for the batch, its (B, R) last row already
+           by column (window_top5 and the clip pass with reindex=False),
+           --dtw-std its std mode with the corner gather; never chunked,
+           as in the JAX package, so the (B, R) row must fit the device
+  native   the exact host DP (native/ sf_subsequence_lastrow,
+           sf_std_lastrow) per read over every track on the thread pool,
+           and the host window scan; only when asked for by name and
+           without --mesh (with a mesh the scan engine runs the grid, the
+           JAX Core's rule)
 
 This port serves the single-device dtw surface of the JAX package with
 host stages, over references of any length (one-shot or chunked): R9 and
@@ -83,7 +99,7 @@ from ..models.pore_model import (
     read_model_tsv,
 )
 from ..ops import jnn
-from ..ops.candidates import compute_mapq, rank_candidates
+from ..ops.candidates import compute_mapq, rank_candidates, window_argmin
 from ..ops.candidates_dev import topk_candidates, window_top5
 from ..ops.chunked_ref import (
     CHUNK_AUTO_COLS,
@@ -109,9 +125,18 @@ from ..ops.layout import (
     unpack_top5,
 )
 from ..ops.sdtw_ref import path_to_map, subsequence_cost_seeded, subsequence_path
+from ..ops.sdtw_scan import onehot_rows, sdtw_scan
 from ..ops.sdtw_wavefront import sdtw_wavefront
 from ..output import paf_line, sam_line
-from ..parallel.shard import make_mesh, ring_shape, ring_topk, shard_streams, shard_tracks, sharded_topk
+from ..parallel.shard import (
+    make_mesh,
+    ring_shape,
+    ring_topk,
+    ring_topk_scan,
+    shard_streams,
+    shard_tracks,
+    sharded_topk,
+)
 from ..utils import log_info, log_verbose, log_warning
 
 
@@ -147,6 +172,12 @@ class Options:
     # in segments of about N diagonals
     ref_chunk: int = 0
     device: str = "cuda"
+    # the JAX Core's engine choice: "pallas" (the wavefront kernel),
+    # "scan" (the column scan) or "native" (the host DP); None takes
+    # use_pallas (--accel: True pallas, False scan), and with that None
+    # too the wavefront kernel
+    engine: str | None = None
+    use_pallas: bool | None = None
     shard_id: int = 0   # multi-host record stripe I of N
     n_shards: int = 1
     # multi-host contiguous record range: stop after this many records
@@ -155,9 +186,11 @@ class Options:
 
     def check_slice(self) -> None:
         """Raise SystemExit for an unknown --host-stages, as the JAX
-        package's Core does."""
+        package's Core does, or an unknown engine."""
         if self.host_stages not in ("host", "device"):
             raise SystemExit(f"unknown --host-stages {self.host_stages!r}")
+        if self.engine not in (None, "pallas", "scan", "native"):
+            raise SystemExit(f"unknown engine {self.engine!r}")
 
 
 @dataclass
@@ -210,6 +243,12 @@ class Core:
     ):
         self.opt = opt
         opt.check_slice()
+        # the JAX Core's precedence, with the wavefront kernel where it
+        # would ask the platform
+        self.engine = opt.engine or ("scan" if opt.use_pallas is False else "pallas")
+        # the wavefront kernel's routes; False: the scan's (the native
+        # engine's too on a mesh, and for nothing else)
+        self.use_pallas = self.engine == "pallas"
         self.device = torch.device(opt.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -352,15 +391,18 @@ class Core:
         self._wf_cache: dict[int, tuple[torch.Tensor, torch.Tensor, int]] = {}
         # chunked-reference segments per (Q, ref_chunk), uploaded once
         self._wf_chunk_cache: dict[tuple[int, int], tuple] = {}
+        # the scan engine's reference and resets (_scan_inputs)
+        self._scan_bufs: tuple[torch.Tensor, torch.Tensor] | None = None
         # the clip fold's window numbering per qlen (clip_window_bases)
         self._clip_bases: dict[int, tuple[np.ndarray, int]] = {}
-        # --dtw-std: each track's corner diagonal, a track's last column
-        # (its first, when empty) + W - 1 (std_corner_diags)
-        self.std_corner_diags = np.array(
-            [int(o) + max(int(n), 1) - 1 + W - 1
+        # --dtw-std: each track's corner column, its last (its first,
+        # when empty), and its diagonal in the wavefront's row, + W - 1
+        self.std_corner_cols = np.array(
+            [int(o) + max(int(n), 1) - 1
              for o, n in zip(self.track_offsets[:-1], self.track_sizes)],
             dtype=np.int64,
         )
+        self.std_corner_diags = self.std_corner_cols + (W - 1)
         # how many times each device route ran: "oneshot" (sub-)batches,
         # "clip_pass" of them whose clipped rows the one-shot route's clip
         # pass served, "chunked" carry chains, "clip_fold" batches whose
@@ -438,10 +480,15 @@ class Core:
             R = ref_cat.shape[0]
             # + pad_q: the ring needs >= W-1 PAD diagonals after the last
             # real column to flush its emissions; sub-chunks of Ds = Rs /
-            # ring_n_sub diagonals, a multiple of W and of the kernel's tile
-            Rs, self.ring_n_sub = ring_shape(
-                R + self.pad_q, n_tp, math.lcm(opt.ckpt, W, DIAG_TILE), opt.ref_chunk
-            )
+            # ring_n_sub diagonals, a multiple of W and of the kernel's
+            # tile. The scan's shards are a multiple of ckpt and W, whole
+            # (the JAX Core's sizes for each engine)
+            if self.use_pallas:
+                Rs, self.ring_n_sub = ring_shape(
+                    R + self.pad_q, n_tp, math.lcm(opt.ckpt, W, DIAG_TILE), opt.ref_chunk
+                )
+            else:
+                Rs, self.ring_n_sub = ring_shape(R + self.pad_q, n_tp, math.lcm(opt.ckpt, W), -1)
             ref_cat = np.concatenate([ref_cat, np.full(n_tp * Rs - R, PAD, np.float32)])
             reset = np.concatenate([reset, np.zeros(n_tp * Rs - R, bool)])
             if R < reset.shape[0]:
@@ -467,15 +514,22 @@ class Core:
         self.ref_cat, self.reset, self.track_offsets = ref_cat, reset, offsets
 
     def _mesh_buffers(self, u_map: np.ndarray, valid_map: np.ndarray, W: int) -> None:
-        """Each shard's buffers of the selected mode on its device (one
-        copy per device and shard), and a stream per shard. Tracks: the
-        one-shot kernel's (1, D) ypad and rspad at pad_q, padded to the
-        shards' common D (PAD values, a reset at each shard's pad
-        boundary), and the shard's column maps. Ring: the shard's
-        columns as (n_sub, 1, Ds) value and reset segments and its rows
-        of the diagonal-indexed valid mask, vd[lane:] = valid[:R - lane]."""
+        """Each shard's buffers of the selected mode and engine on its
+        device (one copy per device and shard), and a stream per shard.
+        Tracks: the one-shot kernel's (1, D) ypad and rspad at pad_q,
+        padded to the shards' common D (PAD values, a reset at each
+        shard's pad boundary), and the shard's column maps. Ring: the
+        shard's columns as (n_sub, 1, Ds) value and reset segments and
+        its rows of the diagonal-indexed valid mask, vd[lane:] = valid[:R
+        - lane]. The scan's: the shard's (Rs,) columns and resets, and
+        its column maps (tracks) or column-indexed valid mask (ring)."""
         n_tp, Rs = len(self.mesh[0]), self.shard_Rs
-        if self.mesh_mode == "tracks":
+        if not self.use_pallas:
+            cols = (self.ref_cat.reshape(n_tp, Rs), self.reset.reshape(n_tp, Rs))
+            maps = ((u_map.reshape(n_tp, Rs), valid_map.reshape(n_tp, Rs))
+                    if self.mesh_mode == "tracks" else (valid_map.reshape(n_tp, Rs),))
+            host = list(zip(*cols, *maps))
+        elif self.mesh_mode == "tracks":
             pads = [prepare_wavefront_inputs(r, rs, self.pad_q) for r, rs in
                     zip(self.ref_cat.reshape(n_tp, Rs), self.reset.reshape(n_tp, Rs))]
             D = max(d for _, _, d in pads)
@@ -516,6 +570,14 @@ class Core:
                 D,
             )
         return self._wf_cache[Q]
+
+    def _scan_inputs(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The scan's (R,) reference values and resets, on the device for
+        the life of the Core."""
+        if self._scan_bufs is None:
+            self._scan_bufs = (torch.from_numpy(self.ref_cat).to(self.device),
+                               torch.from_numpy(self.reset).to(self.device))
+        return self._scan_bufs
 
     def _chunked(self, Q: int, force_oneshot: bool = False) -> bool:
         """Whether a Q-wide batch takes the chunked route (that of the
@@ -581,6 +643,8 @@ class Core:
         """Wait for a submitted batch's results and unpack them."""
         if "parts" in handle:
             return self._collect_parts(self.sdtw_candidates_collect, handle)
+        if "native" in handle:
+            return handle["native"]
         if "packed4" in handle:
             # the tracks engine: one (B/dp, 4k) buffer per grid row, the
             # W-window top-5 and the per-read-window top-5 side by side
@@ -612,20 +676,25 @@ class Core:
         return ts, tp
 
     def _clip_pass(
-        self, handle: dict, scores: torch.Tensor, qlens: np.ndarray, R: int, W: int
+        self, handle: dict, scores: torch.Tensor, qlens: np.ndarray, R: int, W: int,
+        diag_lane: int | None,
     ) -> None:
         """Second device pass for clipped reads (qlen != W): their
-        diagonal-indexed `scores` rows hold their correct qlen-1 rows
-        (shift_queries_for_clip lands them on the kernel's emitted lane
-        W-1), so this only re-derives the qlen-wide candidate windows.
-        The column slice is applied after the row take so only the
-        clipped rows are materialized."""
+        `scores` rows hold their correct qlen-1 rows, so this only
+        re-derives the qlen-wide candidate windows. The wavefront's rows
+        are diagonal-indexed (shift_queries_for_clip lands them on the
+        kernel's emitted lane W-1): diag_lane=W-1 slices the column
+        layout out of them, after the row take so only the clipped rows
+        are materialized. The scan's (B, R) rows are by column already
+        (its one-hot picks each row's qlen-1): diag_lane=None."""
         clip_rows = np.where((qlens > 0) & (qlens != W))[0]
         if not clip_rows.size:
             return
         self._count_route("clip_pass")
         rows_dev = torch.from_numpy(clip_rows).to(self.device)
-        sub = scores.index_select(0, rows_dev)[:, W - 1 : W - 1 + R]
+        sub = scores.index_select(0, rows_dev)
+        if diag_lane is not None:
+            sub = sub[:, diag_lane : diag_lane + R]
         qlens_dev = torch.from_numpy(qlens[clip_rows].astype(np.int32)).to(self.device)
         cpacked = topk_candidates(
             sub, qlens_dev, self.u_dev, self.valid_dev, R, k=5, reindex=False, pack=True,
@@ -634,19 +703,24 @@ class Core:
         handle["clip_packed"] = _start_host_copy(cpacked)
 
     def sdtw_candidates_submit(
-        self, qb: np.ndarray, qlens: np.ndarray, force_oneshot: bool = False
+        self, qb: np.ndarray, qlens: np.ndarray, force_oneshot: bool = False,
+        n_live: int | None = None,
     ) -> dict:
         """Launch the device work for one query batch without waiting for
         it; returns a handle for sdtw_candidates_collect, so the caller
         can overlap the next batch's host stages with this batch's
         device time.
 
-        Routing (that of the JAX package): on a --mesh grid the tracks or
-        the ring engine, whole, with no DEVICE_CHUNK split; else
-        ref_chunk > 0 always takes the chunked route, 0 takes it once R
-        + Q passes CHUNK_AUTO_COLS, -1 never does. force_oneshot takes the
-        one-shot route on one device whatever the reference's length (to
-        compare the routes)."""
+        Routing (that of the JAX package): the native engine without a
+        mesh on the host, its first n_live rows (the rest are bucket
+        padding); on a --mesh grid the tracks or the ring engine, whole,
+        with no DEVICE_CHUNK split; else the scan engine's one-shot scan,
+        or the wavefront's routes: ref_chunk > 0 always takes the chunked
+        route, 0 takes it once R + Q passes CHUNK_AUTO_COLS, -1 never
+        does. force_oneshot takes the one-shot route on one device
+        whatever the reference's length (to compare the routes)."""
+        if self.engine == "native" and self.mesh is None:
+            return self._native_candidates_submit(qb, qlens, n_live)
         if self.mesh_mode == "tracks" and not force_oneshot:
             return self._tracks_submit(qb, qlens)
         if self.mesh_mode == "ring" and not force_oneshot:
@@ -659,34 +733,40 @@ class Core:
         are served in the same pass, by the per-read-window half."""
         B = qb.shape[0]
         W = self.opt.query_size
-        qb, _ = shift_queries_for_clip(qb, qlens, W - 1)
+        if self.use_pallas:
+            qb, _ = shift_queries_for_clip(qb, qlens, W - 1)
         padb = (-B) % len(self.mesh)
         qb = np.pad(qb, ((0, padb), (0, 0)))
         qlens_pad = np.pad(qlens.astype(np.int32), (0, padb), constant_values=max(W, 1))
         self._count_route("mesh_tracks")
         with self._oneshot_lock, self._span("mesh_tracks"):
             outs = sharded_topk(qb, qlens_pad, self._mesh_bufs, self.mesh, self._mesh_streams,
-                                self.shard_Rs, W - 1)
+                                self.shard_Rs, W - 1, scan=not self.use_pallas)
             return dict(packed4=[_start_host_copy(o) for o in outs], qlens=qlens, B=B)
 
     def _ring_submit(self, qb: np.ndarray, qlens: np.ndarray) -> dict:
-        """The ring engine (parallel.ring_topk) over one batch, in the
-        largest count of microbatches up to 32 that divides it. Clipped
-        reads ride the ring shifted (their W-window results are not
-        read): their per-read windows straddle shard boundaries, so they
-        are served again as one power-of-two sub-batch through the
-        single-device route (one-shot or chunked by size) on the grid's
-        first device, its pad rows of qlen 0."""
+        """The ring engine (parallel.ring_topk, or ring_topk_scan on the
+        scan) over one batch, in the largest count of microbatches up to
+        32 that divides it. Clipped reads ride the ring (shifted on the
+        wavefront; their W-window results are not read): their per-read
+        windows straddle shard boundaries, so they are served again as
+        one power-of-two sub-batch through the single-device route
+        (one-shot or chunked by size on the wavefront, the scan on the
+        scan) on the grid's first device, its pad rows of qlen 0."""
         B, Q = qb.shape
         W = self.opt.query_size
         n_micro = min(B, 32)
         while B % n_micro:
             n_micro -= 1
-        qb_k, fs = shift_queries_for_clip(qb, qlens, W - 1)
         self._count_route("ring")
         with self._span("ring"):
-            out = ring_topk(qb_k, fs, self._mesh_bufs[0], self.mesh[0], self._mesh_streams[0],
-                            n_micro, W - 1, W, self.shard_Rs)
+            if self.use_pallas:
+                qb_k, fs = shift_queries_for_clip(qb, qlens, W - 1)
+                out = ring_topk(qb_k, fs, self._mesh_bufs[0], self.mesh[0],
+                                self._mesh_streams[0], n_micro, W - 1, W, self.shard_Rs)
+            else:
+                out = ring_topk_scan(qb, qlens, self._mesh_bufs[0], self.mesh[0],
+                                     self._mesh_streams[0], n_micro, W, self.shard_Rs)
             handle = dict(packed=_start_host_copy(out), B=B)
         clip_rows = np.where((qlens > 0) & (qlens != W))[0]
         if clip_rows.size:
@@ -709,6 +789,8 @@ class Core:
         B, Q = qb.shape
         R = self.ref_cat.shape[0]
         W = self.opt.query_size
+        if not self.use_pallas:
+            return self._scan_submit(qb, qlens)
         clip_rows = np.where((qlens > 0) & (qlens != W))[0]
         if self._chunked(Q, force_oneshot):
             return self._chunked_candidates_submit(qb, qlens, clip_rows)
@@ -731,8 +813,125 @@ class Core:
                 scores, self.valid_dev, R, W, k=5, reindex=True, pack=True
             )
             handle = dict(packed=_start_host_copy(packed))
-            self._clip_pass(handle, scores, qlens, R, W)
+            self._clip_pass(handle, scores, qlens, R, W, diag_lane=W - 1)
         return handle
+
+    def _scan_submit(self, qb: np.ndarray, qlens: np.ndarray) -> dict:
+        """The scan engine's one-shot route on the Core's device: the
+        column scan over the whole reference (each row's last row at its
+        qlen - 1, so clipped reads need no query shift), the window top-5
+        of its (B, R) row by column, and the clip pass on it. Counted as
+        the one-shot route ("oneshot", "clip_pass")."""
+        B, Q = qb.shape
+        R = self.ref_cat.shape[0]
+        W = self.opt.query_size
+        self._count_route("oneshot")
+        ref, reset = self._scan_inputs()
+        q = torch.from_numpy(qb).to(self.device)
+        with self._oneshot_lock, self._span("oneshot"):
+            lr, _ = sdtw_scan(q, onehot_rows(qlens, Q, self.device), ref, reset)
+            packed = window_top5(lr, self.valid_dev, R, W, k=5, reindex=False, pack=True)
+            handle = dict(packed=_start_host_copy(packed))
+            self._clip_pass(handle, lr, qlens, R, W, diag_lane=None)
+        return handle
+
+    def _engine_tracks(self) -> list[np.ndarray]:
+        """Each track's values, views of the Core's layout."""
+        return [self.ref_cat[o : o + n]
+                for o, n in zip(self.track_offsets[:-1].tolist(), self.track_sizes)]
+
+    def _native_candidates_submit(
+        self, qb: np.ndarray, qlens: np.ndarray, n_live: int | None = None
+    ) -> dict:
+        """The native engine (the JAX Core's): each of the first n_live
+        reads (all with None) at its own qlen through the exact host
+        two-row DP over every track (native sf_subsequence; the exact
+        numpy DP where the library is absent), on the thread pool (the
+        native calls release the interpreter lock), then the host window
+        scan and top-5. Bit-exact scalar order; clipped reads need no
+        second pass. The results are in the handle before it returns."""
+        from .. import native
+
+        B = qb.shape[0]
+        n = B if n_live is None else min(n_live, B)
+        R = self.ref_cat.shape[0]
+        tracks = self._engine_tracks()
+        top_s = np.full((B, 5), np.float32(3.0e38))
+        top_p = np.full((B, 5), -1, dtype=np.int64)
+
+        def one(slot: int):
+            qlen = int(qlens[slot])
+            if qlen <= 0:
+                return
+            q = qb[slot, :qlen]
+            lr = np.full(R, np.float32(3.0e38))
+            for t, track in enumerate(tracks):
+                lo = int(self.track_offsets[t])
+                if track.size:
+                    row = native.subsequence_lastrow(q, track, out=lr[lo : lo + track.size])
+                    if row is None:  # native library unavailable: the exact oracle
+                        from ..ops.sdtw_ref import subsequence_cost
+
+                        lr[lo : lo + track.size] = subsequence_cost(q, track)[-1]
+            top_s[slot], top_p[slot] = self._host_top5(lr, qlen)
+
+        list(_pool_map(self._pool, one, range(n), chunk=1))
+        return dict(native=(top_s, top_p))
+
+    def _native_std_corners(
+        self, qb: np.ndarray, qlens: np.ndarray, n_live: int | None = None
+    ) -> np.ndarray:
+        """--dtw-std on the native engine: each (read, track) corner cell
+        of the boundary-anchored DTW (ref sigfish.c:914-925) by the exact
+        host two-row DP (native sf_std_dtw; the numpy DP where the
+        library is absent), on the thread pool. (B, ntracks) f32, BIG for
+        the rows past n_live and the empty tracks."""
+        from .. import native
+
+        B = qb.shape[0]
+        n = B if n_live is None else min(n_live, B)
+        tracks = self._engine_tracks()
+        corners = np.full((B, len(tracks)), np.float32(3.0e38))
+
+        def one(slot: int):
+            qlen = int(qlens[slot])
+            if qlen <= 0:
+                return
+            q = qb[slot, :qlen]
+            for t, track in enumerate(tracks):
+                if track.size:
+                    row = native.std_lastrow(q, track)
+                    if row is None:  # native library unavailable: the exact oracle
+                        from ..ops.sdtw_ref import std_dtw_cost
+
+                        row = std_dtw_cost(q, track)[-1]
+                    corners[slot, t] = row[-1]
+
+        list(_pool_map(self._pool, one, range(n), chunk=1))
+        return corners
+
+    def _host_top5(self, lr_row: np.ndarray, qlen: int):
+        """The window scan and update_aln top-5 of one read's last row
+        (the reference's semantics at any window width): windows of qlen
+        columns a track, the first minimum within a window, the later
+        window on ties between windows."""
+        cand_s: list[float] = []
+        cand_p: list[int] = []
+        for t, size in enumerate(self.track_sizes):
+            lo = int(self.track_offsets[t])
+            mins, args = window_argmin(lr_row[lo : lo + size], qlen)
+            cand_s.extend(mins.tolist())
+            cand_p.extend((args + lo).tolist())
+        s = np.asarray(cand_s, dtype=np.float32)
+        p = np.asarray(cand_p, dtype=np.int64)
+        out_s = np.full(5, np.float32(3.0e38))
+        out_p = np.full(5, -1, dtype=np.int64)
+        for k in range(min(5, s.size)):
+            best = s.size - 1 - int(np.argmin(s[::-1]))  # the later wins ties
+            out_s[k] = s[best]
+            out_p[k] = p[best]
+            s[best] = np.float32(np.inf)
+        return out_s, out_p
 
     def _chunk_inputs(self, Q: int) -> tuple:
         """The chunked route's segment buffers for a Q-wide batch (those of
@@ -799,7 +998,8 @@ class Core:
         return handle
 
     def sdtw_std_corners_submit(
-        self, qb: np.ndarray, qlens: np.ndarray, force_oneshot: bool = False
+        self, qb: np.ndarray, qlens: np.ndarray, force_oneshot: bool = False,
+        n_live: int | None = None,
     ) -> dict:
         """--dtw-std: launch the boundary-anchored sweep (the kernel's
         std instance) for one query batch and gather, on the device, each
@@ -813,13 +1013,29 @@ class Core:
         with ref_chunk > 0) the carry chain streams the reference and
         CornerFold gathers the corners segment by segment, bit for bit
         the one-shot corners: no host DP computes a corner, at any
-        reference size."""
+        reference size. The scan engine runs its std mode over the whole
+        reference (on a mesh too, over the mesh's layout, as the JAX Core
+        does), each row's last row at its qlen - 1; the native engine
+        without a mesh the exact host DP (_native_std_corners), its first
+        n_live rows."""
+        if self.engine == "native" and self.mesh is None:
+            corners = self._native_std_corners(qb, qlens, n_live)
+            return dict(corners=(torch.from_numpy(corners), None))
         parts = self._submit_parts(self.sdtw_std_corners_submit, qb, qlens, force_oneshot)
         if parts is not None:
             return parts
         B, Q = qb.shape
         W = self.opt.query_size
         dev = self.device
+        if not self.use_pallas:
+            self._count_route("oneshot")
+            ref, reset = self._scan_inputs()
+            cols = torch.from_numpy(self.std_corner_cols).to(dev)
+            with self._oneshot_lock, self._span("oneshot"):
+                lr, _ = sdtw_scan(torch.from_numpy(qb).to(dev), onehot_rows(qlens, Q, dev), ref,
+                                  reset, std=True)
+                corners = _start_host_copy(lr.index_select(1, cols))
+            return dict(corners=corners)
         qb_k, fs = shift_queries_for_clip(qb, qlens, W - 1)
         q = torch.from_numpy(qb_k).to(dev)
         sl = torch.from_numpy(fs).to(dev)
@@ -1340,9 +1556,9 @@ def submit_batch(core: Core, blobs: list[bytes]) -> PendingBatch:
         queries.append(np.zeros(max(opt.query_size, 1), dtype=np.float32))
     qb, qlens, _ = make_query_batch(queries, pad_q=core.pad_q)
     if opt.dtw_std:
-        pending.handle = core.sdtw_std_corners_submit(qb, qlens)
+        pending.handle = core.sdtw_std_corners_submit(qb, qlens, n_live=nb)
     else:
-        pending.handle = core.sdtw_candidates_submit(qb, qlens)
+        pending.handle = core.sdtw_candidates_submit(qb, qlens, n_live=nb)
     return pending
 
 

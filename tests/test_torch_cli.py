@@ -1,9 +1,10 @@
 """The port's CLI against the reference's `dtw` option table: every flag
 of sigfish_tpu/cli.py parses and is served; the multi-host flags'
-validation errors are sigfish_tpu's, text and exit code, and --accel and
---engine (the JAX package's engine choice) end with exit code 1 and an
-error naming --device. The `eval` command runs (tests/test_torch_eval.py
-holds its bytes to the JAX CLI's).
+validation errors are sigfish_tpu's, text and exit code, and --engine and
+--accel choose the sDTW engine with sigfish_tpu's precedence (--engine by
+name; --accel yes pallas, no scan; neither the wavefront kernel). The
+`eval` command runs (tests/test_torch_eval.py holds its bytes to the JAX
+CLI's).
 """
 
 from __future__ import annotations
@@ -15,16 +16,54 @@ from sigfish_tpu.cli import make_dtw_parser as jax_parser
 from sigfish_tpu_torch import cli
 
 
-@pytest.mark.parametrize("argv,names", [
-    (["--engine", "pallas"], "--device"),
-    (["--accel", "yes"], "--device"),
+@pytest.fixture(scope="module")
+def dna(tmp_path_factory):
+    """chip_smoke's R9 DNA generator, 800 bases and 12 reads (one
+    clipped)."""
+    from port_runs import load_smoke
+
+    return load_smoke().make_workload(str(tmp_path_factory.mktemp("cli_dna")), 800, 12, 21)[:2]
+
+
+@pytest.mark.parametrize("argv,engine", [
+    ([], "pallas"),
+    (["--engine", "pallas"], "pallas"),
+    (["--engine", "scan"], "scan"),
+    (["--engine", "native"], "native"),
+    (["--accel", "yes"], "pallas"),
+    (["--accel", "no"], "scan"),
+    (["--accel", "no", "--engine", "native"], "native"),
+    (["--accel", "yes", "--engine", "scan"], "scan"),
 ])
-def test_later_dtw_flags_name_their_item(argv, names, capsys, tmp_path):
-    rc = cli.main(["dtw", str(tmp_path / "ref.fa"), str(tmp_path / "reads.blow5"),
-                   "--device", "cpu", *argv])
-    err = capsys.readouterr().err
-    assert rc == 1, err
-    assert names in err and "usage:" not in err
+def test_engine_flags_choose_the_engine(dna, argv, engine, tmp_path, monkeypatch):
+    """Each --engine / --accel line runs, exit code 0, and writes the PAF
+    of the port's run_dtw on the engine sigfish_tpu's precedence picks
+    (the Core the CLI built reports it); the exact engines' PAF is
+    sigfish_tpu's CLI output with the same flags."""
+    from port_runs import run_port
+    from sigfish_tpu_torch.runtime import pipeline
+
+    built = []
+    monkeypatch.setattr(pipeline.Core, "close",
+                        lambda self, _close=pipeline.Core.close: (built.append(self), _close(self)))
+    ours, theirs = tmp_path / "ours.paf", tmp_path / "theirs.paf"
+    flags = ["-K", "8", "-t", "2", *argv]
+    assert cli.main(["dtw", *dna, "--device", "cpu", *flags, "-o", str(ours)]) == 0
+    assert [c.engine for c in built] == [engine]
+    assert ours.read_text() == run_port(*dna, engine=engine, batch_size=8)[0] != ""
+    if engine != "scan":
+        jax_flags = ["-K", "8", "-t", "2", *(argv or ["--engine", "pallas"])]
+        assert jax_cli.main(["dtw", *dna, *jax_flags, "-o", str(theirs)]) == 0
+        assert ours.read_text() == theirs.read_text()
+
+
+def test_unknown_engine_is_refused(tmp_path, capsys):
+    """An engine outside pallas|scan|native is argparse's exit code 2, as
+    in sigfish_tpu, before any file is opened."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(["dtw", str(tmp_path / "ref.fa"), str(tmp_path / "reads.blow5"),
+                  "--device", "cpu", "--engine", "xla"])
+    assert e.value.code == 2 and "invalid choice" in capsys.readouterr().err
 
 
 def _error_line(err: str) -> str:

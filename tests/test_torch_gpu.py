@@ -18,6 +18,7 @@ import torch
 
 from sigfish_tpu_torch.ops import alu_peak as ap
 from sigfish_tpu_torch.ops import layout
+from sigfish_tpu_torch.ops import sdtw_scan as ss
 from sigfish_tpu_torch.ops import sdtw_wavefront as wf
 
 
@@ -229,6 +230,80 @@ def test_alu_peak_kernel_bitwise_vs_plain(cuda_device, mode):
     assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32).cpu())
 
 
+def _scan_case(seed, W, Q, B=40):
+    """(queries, one-hot, ref, reset) of the scan: four random tracks and
+    B reads, full-length, clipped and one of qlen 0."""
+    rng = np.random.default_rng(seed)
+    tracks = [rng.standard_normal(int(s)).astype(np.float32) for s in rng.integers(50, 900, 4)]
+    ref, reset, _ = layout.pad_tracks(tracks, ckpt=512, align=W)
+    qlens = rng.integers(1, W + 1, size=B)
+    qlens[::3], qlens[-1] = W, 0
+    qb, _, oh = layout.make_query_batch(
+        [rng.standard_normal(int(n)).astype(np.float32) for n in qlens], pad_q=Q)
+    return qb, oh, ref, reset
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,Q", [(100, 128), (250, 256), (300, 384), (500, 512)])
+@pytest.mark.parametrize("std", [False, True])
+def test_scan_kernel_bitwise_vs_plain(cuda_device, W, Q, std):
+    """Every Q the pipeline pads to, std included: the one-shot launch
+    (counted once) and its final column, and a chain of three uneven
+    segments through the carry, bitwise against the plain version."""
+    args = [torch.from_numpy(a).to(cuda_device) for a in _scan_case(W + Q, W, Q)]
+    before = ss.sdtw_scan.launches
+    got = ss.sdtw_scan(*args, std=std)
+    torch.cuda.synchronize()
+    assert ss.sdtw_scan.launches == before + 1
+    want = ss.scan_plain(*args, std=std)
+    assert _same_bytes(got[0], want[0]) and _same_bytes(got[1], want[1])
+    q, oh, y, r = args
+    init, parts = None, []
+    for a, b in ((0, 333), (333, 1024), (1024, y.shape[0])):
+        lr, init = ss.sdtw_scan(q, oh, y[a:b], r[a:b], std=std, init=init)
+        parts.append(lr)
+    assert _same_bytes(torch.cat(parts, 1), want[0]) and _same_bytes(init, want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dna", "rna_std"])
+def test_scan_engine_on_the_card_vs_cpu(cuda_device, tmp_path, kind):
+    """run_dtw with --engine scan on the card: the scan kernel launched,
+    no wavefront and no plain sweep, and the PAF byte for byte the CPU
+    run's (R9 DNA with clipped reads; RNA --dtw-std, the std mode)."""
+    from sigfish_tpu_torch.runtime import pipeline as tp
+
+    smoke = _load_smoke()
+    if kind == "dna":
+        fa, bl = smoke.make_workload(str(tmp_path), 3000, 96, 13)[:2]
+        opt = dict(batch_size=64)
+    else:
+        fa, bl = smoke.make_rna_workload(str(tmp_path), 6, 48, 17, tx_len=(600, 1500))[:2]
+        opt = dict(rna=True, query_size=500, dtw_std=True, batch_size=32)
+    pafs = []
+    for device in ("cuda", "cpu"):
+        before = (ss.sdtw_scan.launches, ss.scan_plain.calls, wf.sdtw_wavefront.launches)
+        core = tp.Core(fa, bl, tp.Options(device=device, engine="scan", num_thread=2, **opt))
+        out = io.StringIO()
+        tp.run_dtw(core, out)
+        core.close()
+        pafs.append(out.getvalue())
+        if device == "cuda":
+            assert ss.sdtw_scan.launches > before[0]
+            assert (ss.scan_plain.calls, wf.sdtw_wavefront.launches) == before[1:]
+    assert pafs[0] == pafs[1] != ""
+
+
+@pytest.mark.gpu
+def test_scan_kernel_refuses_unbuilt_width(cuda_device):
+    """A Q the kernel is not built for raises; nothing launches."""
+    args = [torch.from_numpy(a).to(cuda_device) for a in _scan_case(1, 150, 160)]
+    before = ss.sdtw_scan.launches
+    with pytest.raises(ValueError):
+        ss.sdtw_scan(*args)
+    assert ss.sdtw_scan.launches == before
+
+
 @pytest.mark.gpu
 def test_wavefront_kernel_refuses_unbuilt_width(cuda_device):
     """A CUDA tensor never falls back to the plain version."""
@@ -407,10 +482,10 @@ def test_host_stages_device_on_the_card(cuda_device, tmp_path):
     assert pafs[0] == pafs[1] != ""
 
 
-def _mesh_run(smoke, tmp_path, mesh, n_dev, device):
+def _mesh_run(smoke, tmp_path, mesh, n_dev, device, engine=None):
     """(packed candidates of one batch, PAF) of a --mesh run over a
     one-contig DNA workload (-p 210 -q 64 clips its short reads) on
-    n_dev "cuda:0" entries or on the CPU."""
+    n_dev "cuda:0" entries or on the CPU, on the engine given."""
     from sigfish_tpu_torch.runtime import pipeline as tp
 
     d = tmp_path / "w"
@@ -419,7 +494,7 @@ def _mesh_run(smoke, tmp_path, mesh, n_dev, device):
         smoke.make_workload(str(d), 900, 40, 41)
     fa, bl = str(d / "ref.fa"), str(d / "reads.blow5")
     opt = dict(query_size=64, prefix_size=210, ckpt=64, batch_size=64, num_thread=2, mesh=mesh,
-               mesh_devices=[device] * n_dev, device=device.split(":")[0])
+               mesh_devices=[device] * n_dev, device=device.split(":")[0], engine=engine)
     core = tp.Core(fa, bl, tp.Options(**opt))
     works = [tp._prepare_read(core, b) for b in core.sf.read_batch(64, 1 << 40)]
     qb, qlens, _ = tp.make_query_batch([w.query for w in works if not w.skip], pad_q=core.pad_q)
@@ -450,6 +525,25 @@ def test_mesh_on_the_card_vs_cpu(cuda_device, tmp_path, mesh, n_dev, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mesh,n_dev,mode", [("2x2", 4, "tracks"), ("1x4", 4, "ring")])
+def test_scan_mesh_on_the_card_vs_cpu(cuda_device, tmp_path, mesh, n_dev, mode):
+    """The scan engine on a tracks mesh and a ring mesh over one card
+    listed n times: the batch's top-5 and the PAF the CPU's, bit for bit;
+    the scan kernel ran and no plain sweep and no wavefront."""
+    smoke = _load_smoke()
+    before = (ss.scan_plain.calls, ss.sdtw_scan.launches, wf.sdtw_wavefront.launches,
+              wf.sdtw_wavefront_carry.launches)
+    ts, tp_, paf, core = _mesh_run(smoke, tmp_path, mesh, n_dev, "cuda:0", "scan")
+    assert ss.sdtw_scan.launches > before[1]
+    assert (ss.scan_plain.calls, wf.sdtw_wavefront.launches,
+            wf.sdtw_wavefront_carry.launches) == (before[0], *before[2:])
+    assert core.mesh_mode == mode
+    want = _mesh_run(smoke, tmp_path, mesh, n_dev, "cpu", "scan")
+    assert np.array_equal(ts, want[0]) and np.array_equal(tp_, want[1])
+    assert paf == want[2] != ""
+
+
+@pytest.mark.gpu
 def test_kernels_on_a_second_card(cuda_device):
     """Each wrapper launches on its tensor's card with the current device
     left at 0 (a stream and shared-memory attribute of cuda:1, not of
@@ -473,6 +567,8 @@ def test_kernels_on_a_second_card(cuda_device):
     _events_stages_check(dev, True, "fuzz")  # the four stages, then detect_peaks
     args = ev.batch_tensors(*_load_smoke().host_stage_batch(7, True), dev)
     assert _same_bytes(jd.polya_end(*args, 0), jd.polya_end_plain(*args, 0))
+    sargs = [torch.from_numpy(a).to(dev) for a in _scan_case(5, 100, 128)]
+    assert _same_bytes(ss.sdtw_scan(*sargs)[0], ss.scan_plain(*sargs)[0])
     torch.cuda.synchronize(dev)
     assert torch.cuda.current_device() == 0
 

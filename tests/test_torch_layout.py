@@ -120,6 +120,7 @@ _MODULES = [
     "sigfish_tpu_torch.ops.jnn_device",
     "sigfish_tpu_torch.ops.layout",
     "sigfish_tpu_torch.ops.sdtw_ref",
+    "sigfish_tpu_torch.ops.sdtw_scan",
     "sigfish_tpu_torch.ops.sdtw_wavefront",
     "sigfish_tpu_torch.ops.train_dtw",
     "sigfish_tpu_torch.output",
