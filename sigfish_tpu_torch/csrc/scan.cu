@@ -12,30 +12,47 @@
 //   new[i] = s[i] + min(t[0], ..., t[i])
 // and out[b, j] = new[row_b], row_b = qlen_b - 1 (out 0 where row_b < 0).
 //
-// One warp a read, its Q = 32 * ROWS rows in 32 contiguous runs, ROWS a
-// lane, the query and the carry in registers. Each column:
-//   1. the lane's run sums in row order, then a 5-step __shfl_up_sync
-//      Hillis-Steele scan of the 32 run totals (offsets 1, 2, 4, 8, 16),
-//      and each row adds its run's exclusive prefix: s;
-//   2. c_up and s[i-1] of a run's first row from the lane above (one
-//      shuffle each; row 0 takes t[0] instead);
-//   3. t, the run's prefix min in row order, the same warp scan under
-//      fminf, each row's min with its run's exclusive prefix: g;
-//   4. new = s + g, and the lane holding row_b stores it at (b, j).
-// Only the sum's order changes bits (min is exact in any order), and
-// that order is the plain version's: the two agree bit for bit. The sums
-// of column j + 1 do not depend on the carry, so each iteration computes
-// them beside column j's min chain, and the two chains' shuffles overlap.
+// The sum's order. The Q = 32 * ROWS rows are 32 contiguous runs of ROWS,
+// one a lane. A run's sums are taken in row order (run[k] = run[k-1] +
+// local[k]), and the runs are chained in lane order: E_0 = 0, E_{l+1} =
+// E_l + T_l with T_l lane l's run total, s = run + E_l. The plain version
+// sums in this order, so the two agree bit for bit (min is exact in any
+// order). In it, s of the row above lane l's first row is T_{l-1} +
+// E_{l-1} = E_l, the same bits, so t of a run's first row is
+// min(c, c_above) - E_l.
+//
+// A lane-skewed pipeline, as csrc/wavefront.cu schedules its diagonals:
+// one warp a read, lane l holding rows [l*ROWS, (l+1)*ROWS) and computing
+// column j = t - l at step t. So what lane l needs of the rows above its
+// run at column j, lane l - 1 made one step earlier, and one shuffle each
+// brings it: E (the sum of all rows above), G (the minimum of all t above)
+// and lane l - 1's last row of column j, which lane l keeps a step as its
+// c_above for column j + 1. A step of a lane:
+//   s[k] = run[k] + E;  t[0] = min(c[0], c_above) - E (lane 0: 0, or p0);
+//   t[k] = min(c[k], c[k-1]) - s[k-1];  pm = min(G, t[0], ..., t[k]);
+//   new[k] = s[k] + pm,
+// and it hands on E + T (= s[ROWS-1], the same bits), pm of its last row
+// and new[ROWS-1]. Lane 0 starts from E = 0 and G = +inf. The run sums of
+// the next column do not depend on the carry and are made a step ahead.
+// No warp-wide scan is left: a lane's chain to the next lane is one
+// shuffle, an add, a sub and its run's mins. Each lane reads y and the
+// reset flag of its own column, two steps and one step ahead; a reset
+// sets the lane's c and c_above to BIG. The 31 steps of the pipeline's
+// fill and drain run lanes outside the sweep: there the lane keeps its
+// column (c = live ? new : c) and stores nothing, and what it hands on
+// reaches only lanes outside the sweep. The steps in between, the most,
+// carry no such select. The lane that holds row_b stores out[b, j] as it
+// passes column j; the final column is each lane's rows after its last.
 //
 // Modes: one-shot (init null: the carry starts BIG) and carry (an
 // initial (B, Q) column); the final column goes to final_col when given,
 // so segments chained through it equal one scan over their concatenation.
 //
-// What bounds it: R dependent column steps a read, each two chains of
-// ROWS f32 operations and six shuffles (~23 cycles each), far from the
-// issue rate; B = 512 reads are 4 warps an SM, one a scheduler. The
-// bytes are the (B, R) output, 4 B a cell-column. A later design could
-// put several reads in a warp or split the runs over warps.
+// What bounds it: B * Q * R cells at ~9 f32 instructions each (the
+// function's 8, and the add of a run's E), at the SMs' issue rate; the
+// bytes are the (B, R) output. A warp's step is ROWS cells and three
+// shuffles, and its chain to the next lane short, so with a few warps a
+// scheduler the issue rate, not the shuffles' latency, sets the pace.
 // Build with -fmad=false and without --use_fast_math.
 
 #include <cuda_runtime.h>
@@ -49,24 +66,108 @@ constexpr float kBig = 3.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 4;
 
-// this lane's rows of s for column value y
+// a[r] for this lane's r: a tree of selects on r's bits, ceil(log2(ROWS))
+// predicates and ROWS - 1 selects
 template <int ROWS>
-__device__ __forceinline__ void column_sums(const float (&x)[ROWS], float y, int lane,
-                                            float (&s)[ROWS]) {
-  s[0] = fabsf(x[0] - y);
+__device__ __forceinline__ float pick_row(const float (&a)[ROWS], int r) {
+  float v[ROWS];
 #pragma unroll
-  for (int k = 1; k < ROWS; ++k) s[k] = s[k - 1] + fabsf(x[k] - y);
-  float v = s[ROWS - 1];
+  for (int i = 0; i < ROWS; ++i) v[i] = a[i];
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(kFull, v, off);
-    v = lane >= off ? v + o : v;
+  for (int s = 1; s < ROWS; s <<= 1) {
+#pragma unroll
+    for (int i = 0; i + s < ROWS; i += 2 * s) v[i] = (r & s) ? v[i + s] : v[i];
   }
-  float e = __shfl_up_sync(kFull, v, 1);
-  e = lane == 0 ? 0.f : e;
-#pragma unroll
-  for (int k = 0; k < ROWS; ++k) s[k] = s[k] + e;
+  return v[0];
 }
+
+// One lane's sweep over columns [j0, j0 + n) of one read: its rows' query
+// values and carry, and what the pipeline hands from step to step.
+template <int ROWS, bool STD>
+struct Sweep {
+  const float* ref;
+  const unsigned char* reset;
+  float* ob;        // out[b, :]
+  int R, j0, n, lane, kk;
+  bool store;       // this lane holds row_b (lane 0 where there is none)
+  bool none;        // row_b < 0: the stored value is 0
+  float x[ROWS], c[ROWS];
+  float run[ROWS];  // the run sums of this step's column
+  float y1;         // y of the next step's column
+  bool rs;          // this step's column is a reset
+  float ca = kBig;  // lane - 1's last row at this step's column - 1
+  float e_out = 0.f, g_out = 0.f;
+
+  __device__ __forceinline__ int col(int j) const { return min(max(j, 0), R - 1); }
+
+  __device__ __forceinline__ void sums(float y, float (&a)[ROWS]) const {
+    a[0] = fabsf(x[0] - y);
+#pragma unroll
+    for (int k = 1; k < ROWS; ++k) a[k] = a[k - 1] + fabsf(x[k] - y);
+  }
+
+  __device__ __forceinline__ void start() {
+    const int j = j0 - lane;
+    sums(ref[col(j)], run);
+    y1 = ref[col(j + 1)];
+    rs = reset[col(j)] != 0;
+  }
+
+  // step t: column j0 + t - lane. GUARD: some lane lies outside the sweep
+  template <bool GUARD>
+  __device__ __forceinline__ void step(int t) {
+    const int j = j0 + t - lane;
+    const float y2 = ref[col(j + 2)];
+    const bool rs1 = reset[col(j + 1)] != 0;
+    float sn[ROWS];
+    sums(y1, sn);
+    float e = __shfl_up_sync(kFull, e_out, 1);
+    float g = __shfl_up_sync(kFull, g_out, 1);
+    const float cl = __shfl_up_sync(kFull, c[ROWS - 1], 1);
+    e = lane == 0 ? 0.f : e;
+    g = lane == 0 ? INFINITY : g;
+    const float p0 = STD && !rs ? c[0] : 0.f;
+    float cc[ROWS], s[ROWS], nv[ROWS];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      cc[k] = rs ? kBig : c[k];
+      s[k] = run[k] + e;
+    }
+    const float cu = rs ? kBig : ca;
+    float pm = fminf(g, lane == 0 ? p0 : fminf(cc[0], cu) - e);
+    nv[0] = s[0] + pm;
+#pragma unroll
+    for (int k = 1; k < ROWS; ++k) {
+      pm = fminf(pm, fminf(cc[k], cc[k - 1]) - s[k - 1]);
+      nv[k] = s[k] + pm;
+    }
+    e_out = s[ROWS - 1];
+    g_out = pm;
+    const bool live = !GUARD || (unsigned)(t - lane) < (unsigned)n;
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      c[k] = live ? nv[k] : c[k];
+      run[k] = sn[k];
+    }
+    ca = cl;
+    const float v = pick_row(nv, kk);
+    if (store && live) ob[j] = none ? 0.f : v;
+    y1 = y2;
+    rs = rs1;
+  }
+
+  // the n + 31 steps: the fill and the drain guarded, the rest not
+  __device__ __forceinline__ void run_all() {
+    if (n <= 0) return;
+    start();
+    const int steps = n + 31;
+    const int fill = min(31, steps);
+    int t = 0;
+    for (; t < fill; ++t) step<true>(t);
+    for (; t < n; ++t) step<false>(t);
+    for (; t < steps; ++t) step<true>(t);
+  }
+};
 
 template <int ROWS, bool STD>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
@@ -80,65 +181,27 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
   if (b >= B) return;  // the whole warp
   const int base = lane * ROWS;
   const size_t qo = (size_t)b * Q + base;
-  float x[ROWS], c[ROWS];
+  Sweep<ROWS, STD> w;
+  w.ref = ref;
+  w.reset = reset;
+  w.ob = out + (size_t)b * R;
+  w.R = R;
+  w.j0 = 0;
+  w.n = R;
+  w.lane = lane;
 #pragma unroll
   for (int k = 0; k < ROWS; ++k) {
-    x[k] = q[qo + k];
-    c[k] = init ? init[qo + k] : kBig;
+    w.x[k] = q[qo + k];
+    w.c[k] = init ? init[qo + k] : kBig;
   }
   const int row = lrow[b];
-  const bool owner = row < 0 ? lane == 0 : (row >= base && row < base + ROWS);
-  const int kk = row - base;
-  float* ob = out + (size_t)b * R;
-  // the loop body is one basic block, so the compiler interleaves column
-  // j + 1's sums with column j's min chain; the reference value is
-  // loaded two columns ahead and the reset flag one
-  float s[ROWS];
-  float y1 = 0.f, y2 = 0.f;
-  bool rs = false;
-  if (R > 0) {
-    column_sums(x, ref[0], lane, s);
-    y1 = ref[min(1, R - 1)];
-    rs = reset[0] != 0;
-  }
-  for (int j = 0; j < R; ++j) {
-    y2 = ref[min(j + 2, R - 1)];
-    const bool rs1 = reset[min(j + 1, R - 1)] != 0;
-    float sn[ROWS];
-    column_sums(x, y1, lane, sn);
-    const float p0 = STD && !rs ? c[0] : 0.f;
-#pragma unroll
-    for (int k = 0; k < ROWS; ++k) c[k] = rs ? kBig : c[k];
-    const float c_above = __shfl_up_sync(kFull, c[ROWS - 1], 1);
-    const float s_above = __shfl_up_sync(kFull, s[ROWS - 1], 1);
-    float t[ROWS];
-    t[0] = lane == 0 ? p0 : fminf(c[0], c_above) - s_above;
-#pragma unroll
-    for (int k = 1; k < ROWS; ++k) t[k] = fminf(c[k], c[k - 1]) - s[k - 1];
-#pragma unroll
-    for (int k = 1; k < ROWS; ++k) t[k] = fminf(t[k - 1], t[k]);
-    float h = t[ROWS - 1];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(kFull, h, off);
-      h = lane >= off ? fminf(h, o) : h;
-    }
-    float g = __shfl_up_sync(kFull, h, 1);
-    g = lane == 0 ? INFINITY : g;
-    float v = 0.f;
-#pragma unroll
-    for (int k = 0; k < ROWS; ++k) {
-      c[k] = s[k] + fminf(g, t[k]);
-      v = k == kk ? c[k] : v;
-      s[k] = sn[k];
-    }
-    if (owner) ob[j] = v;
-    y1 = y2;
-    rs = rs1;
-  }
+  w.none = row < 0;
+  w.store = row < 0 ? lane == 0 : (row >= base && row < base + ROWS);
+  w.kk = row - base;
+  w.run_all();
   if (final_col) {
 #pragma unroll
-    for (int k = 0; k < ROWS; ++k) final_col[qo + k] = c[k];
+    for (int k = 0; k < ROWS; ++k) final_col[qo + k] = w.c[k];
   }
 }
 

@@ -20,9 +20,9 @@ row (qlen 0) gives a row of 0, as the JAX one-hot sum does.
 min is exact in any order; only the sum's order changes bits. This
 module fixes it as the kernel computes it: the Q rows split into 32
 contiguous runs of Q/32 rows (one a lane), an inclusive f32 sum down
-each run in row order, a Hillis-Steele inclusive scan of the 32 run
-totals (offsets 1, 2, 4, 8, 16: lane l adds lane l - off's value), and
-each row's run sum plus its run's exclusive prefix (0 for the first).
+each run in row order, the run totals chained in lane order (E_0 = 0,
+E_{l+1} = E_l + T_l, T_l run l's total), and each row's run sum plus
+its run's E.
 The JAX package sums in XLA's own order (a reduce-window rewrite on the
 CPU), so the two agree within rounding (rtol 2e-5, atol 2e-4, as its
 tests hold this engine), while the kernel and scan_plain agree bit for
@@ -59,9 +59,10 @@ LANES = 32
 OPS_PER_CELL = 8
 
 # and those the kernel issues a cell besides, for its split into 32 runs:
-# the add of the run's exclusive prefix (s) and the min with it (the
-# prefix min). Shuffles and the last row's pick are not counted.
-RUN_OPS_PER_CELL = 2
+# the add of the run's E to each run sum (s). The minimum above the run
+# (G) enters the prefix min once a run, not a cell. Shuffles and the
+# last row's pick are not counted.
+RUN_OPS_PER_CELL = 1
 
 # the plain version's precomputed s: at most this many (columns x B x Q)
 # elements at once
@@ -85,8 +86,8 @@ def onehot_rows(qlens, Q: int, device=None) -> torch.Tensor:
 
 def column_sums(queries: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """s for each column value y (C,): (C, B, Q) f32, in the kernel's
-    order (a run's sum in row order, the Hillis-Steele scan of the run
-    totals, the run's exclusive prefix added)."""
+    order (a run's sum in row order, the run totals chained in lane
+    order, each run's E added)."""
     B, Q = queries.shape
     r = Q // LANES
     # a[k] is row k of every run: (r, C, B, 32)
@@ -94,12 +95,10 @@ def column_sums(queries: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     a = torch.abs(x[:, None] - y[None, :, None, None])
     for k in range(1, r):
         a[k] += a[k - 1]
-    v = a[r - 1]
-    for off in (1, 2, 4, 8, 16):
-        w = v.clone()
-        w[..., off:] += v[..., :-off]
-        v = w
-    a[..., 1:] += v[None, ..., :-1]
+    e = torch.zeros_like(a[0])
+    for lane in range(1, LANES):
+        e[..., lane] = e[..., lane - 1] + a[r - 1, ..., lane - 1]
+    a[..., 1:] += e[None, ..., 1:]
     return a.permute(1, 2, 3, 0).reshape(-1, B, Q)
 
 
@@ -154,19 +153,20 @@ def scan_plain(
     g = torch.empty((B, Q), dtype=torch.float32, device=dev)
     gi = torch.empty((B, Q), dtype=torch.int64, device=dev)
     out = torch.empty((R, B), dtype=torch.float32, device=dev)
-    rs_host = reset.cpu().tolist()
+    resets = set(reset.nonzero().flatten().tolist())
     chunk = max(1, _S_CHUNK_ELEMS // max(B * Q, 1))
     for j0 in range(0, R, chunk):
         S = column_sums(queries, ref[j0 : j0 + chunk])
         for jj in range(S.shape[0]):
             j = j0 + jj
             s = S[jj]
+            rs = j in resets
             if std:
-                if rs_host[j]:
+                if rs:
                     t[:, 0] = 0.0
                 else:
                     t[:, 0] = c[:, 0]
-            if rs_host[j]:
+            if rs:
                 c.fill_(BIG)
             # rows 1..: t = min(c, c_up) - s above (row 0's c_up is BIG)
             torch.minimum(c[:, 1:], c[:, :-1], out=t[:, 1:])

@@ -1,8 +1,9 @@
-// A CPU stand-in for the CUDA runtime, enough to run the trainer's kernels
-// (sigfish_tpu_torch/csrc/gap_dtw.cu, banded_dtw.cu) on the host in
-// tests/test_torch_train_emulated.py: each block's threads are std::threads
-// that run the kernel's code as written, a warp's 32 in lockstep at every
-// shuffle, ballot and __syncwarp (a barrier exchange), the block's at
+// A CPU stand-in for the CUDA runtime, enough to run the warp-level kernels
+// (sigfish_tpu_torch/csrc/gap_dtw.cu, banded_dtw.cu, scan.cu) on the host in
+// tests/test_torch_train_emulated.py and tests/test_torch_scan_emulated.py:
+// each block's threads are std::threads that run the kernel's code as
+// written, a warp's 32 in lockstep at every shuffle, ballot and __syncwarp
+// (a barrier exchange), the block's at
 // __syncthreads. Blocks run one after another, so __shared__ variables are
 // statics and the dynamic shared memory a buffer a block. The test rewrites
 // each launch `k<<<grid, block, smem, stream>>>(args)` as
@@ -79,6 +80,7 @@ inline unsigned __ballot_sync(unsigned, int p) {
   emu_warp->bar.arrive_and_wait();
   return r;
 }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline void __syncwarp() { emu_warp->bar.arrive_and_wait(); }
 inline void __syncthreads() { emu_block->arrive_and_wait(); }
 inline void __threadfence_block() { std::atomic_thread_fence(std::memory_order_seq_cst); }

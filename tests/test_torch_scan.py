@@ -4,8 +4,8 @@ csrc/scan.cu) against sigfish_tpu.ops.sdtw.sdtw_scan and the exact DP,
 and whole runs under --engine / --accel against sigfish_tpu's.
 
 The two scans sum each column in different orders (the port's is the
-kernel's: runs of Q/32 rows, then a Hillis-Steele scan of the run
-totals; XLA's is its own), so their last rows agree within the JAX
+kernel's: runs of Q/32 rows, then the run totals chained in lane order;
+XLA's is its own), so their last rows agree within the JAX
 package's tolerance for this engine (rtol 2e-5, atol 2e-4,
 tests/test_sdtw.py), not bit for bit. Where two windows' scores lie
 within that drift a row's winner can differ between the two, as it can
@@ -103,10 +103,9 @@ def test_scan_carry_chain_is_the_one_shot_bitwise(std, cuts):
 
 def _numpy_scan(qb, oh, ref, reset, std):
     """The kernel's order restated in numpy f32, column by column: each
-    lane's run of Q/32 rows summed in row order, a Hillis-Steele scan of
-    the 32 run totals (lane l adds lane l - off, off = 1, 2, 4, 8, 16),
-    each row plus its run's exclusive prefix; then t, the prefix min and
-    new = s + g."""
+    lane's run of Q/32 rows summed in row order, the 32 run totals
+    chained in lane order (E_0 = 0, E_{l+1} = E_l + T_l), each row plus
+    its run's E; then t, the prefix min and new = s + g."""
     B, Q = qb.shape
     r = Q // 32
     c = np.full((B, Q), BIG, np.float32)
@@ -116,13 +115,9 @@ def _numpy_scan(qb, oh, ref, reset, std):
         a = np.abs(qb - np.float32(ref[j])).reshape(B, 32, r)
         for k in range(1, r):
             a[:, :, k] = a[:, :, k - 1] + a[:, :, k]
-        v = a[:, :, r - 1].copy()
-        for off in (1, 2, 4, 8, 16):
-            nv = v.copy()
-            nv[:, off:] = v[:, off:] + v[:, :-off]
-            v = nv
-        e = np.zeros_like(v)
-        e[:, 1:] = v[:, :-1]
+        e = np.zeros((B, 32), np.float32)
+        for lane in range(1, 32):
+            e[:, lane] = e[:, lane - 1] + a[:, lane - 1, r - 1]
         s = (a + e[:, :, None]).reshape(B, Q)
         p0 = np.zeros(B, np.float32) if reset[j] else c[:, 0].copy()
         if reset[j]:
