@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (sigfish_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old LABEL=DIR ...]
 
 Run from the root of a checkout, on a machine with one Hopper GPU
 (compute capability 9.0), nvcc and g++. It builds the port's kernels from
@@ -239,11 +239,18 @@ no result line) if any of them fails:
               qlen 0), one-shot at Q=256 over 20,000 of phase 4's columns
               and at Q=512 over phase 7's first 24,576, std at Q=512, and
               a carry chain of three uneven segments against the one-shot
-              launch; its launch timed at B=512 over phase 4's whole
+              launch (B=64 splits each read into 19-24 pieces, a warp
+              each); its launch timed at B=512 over phase 4's whole
               reference (Q=256) and phase 7's (Q=512), each held to one
               plain run (whose ms is printed), beside its bound (the
-              function's 8 operations a cell, and the 10 the kernel
-              issues); phase 4's and phase 7's workloads on the scan
+              function's 8 operations a cell, and the 9 the kernel
+              issues), its pieces a read and SM cycles a warp's step,
+              in turns with the scan.cu of each older checkout given
+              with --old LABEL=DIR (each one's outputs compared with the
+              plain run's, within the JAX tolerance where it sums in
+              another order; its times in the kernels line's designs
+              keys, empty without --old); phase 4's and phase 7's
+              workloads on the scan
               engine (the launches counted, no wavefront, the lines
               differing from the default engine's PAF printed, the
               mapped share gated, the first 128 and 64 reads
@@ -752,6 +759,24 @@ def overlap_share(paf: str, truth: dict) -> float:
     return hit / len(truth)
 
 
+def scan_batch(seed: int, B: int, Q: int, W_: int, every: int, dev):
+    """Phase 13's queries: B seeded reads of Q samples, one in `every`
+    clipped (qlen 25 .. W-1) and the last of qlen 0: (queries, one-hot)
+    on dev."""
+    import numpy as np
+    import torch
+
+    from sigfish_tpu_torch.ops import layout
+
+    rng = np.random.default_rng(seed)
+    ql = np.full(B, W_, np.int32)
+    ql[every - 1 :: every] = rng.integers(25, W_, size=ql[every - 1 :: every].size)
+    ql[-1] = 0
+    qb, _, oh = layout.make_query_batch(
+        [rng.standard_normal(int(x)).astype(np.float32) for x in ql], pad_q=Q)
+    return torch.from_numpy(qb).to(dev), torch.from_numpy(oh).to(dev)
+
+
 def bits_equal(a, b) -> bool:
     import torch
 
@@ -937,7 +962,14 @@ def counters_text(core) -> str:
             f"\tignored: {core.ignored}\ttoo short: {core.too_short}")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", action="append", default=[], metavar="LABEL=DIR",
+                    help="an older checkout DIR whose csrc/scan.cu phase 13 times in turns with "
+                         "the scan kernel (the kernels line's designs keys)")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -951,8 +983,9 @@ def main() -> None:
     import numpy as np
 
     from sigfish_tpu_torch.kernels import build as kbuild
+    from sigfish_tpu_torch.ops import sdtw_scan as ssm
     from sigfish_tpu_torch.scripts import bench_carry
-    from sigfish_tpu_torch.scripts.timing import median_ms, sm_clock_mhz
+    from sigfish_tpu_torch.scripts.timing import build_source, median_ms, sm_clock_mhz
     from sigfish_tpu_torch.ops import alu_peak as apm
     from sigfish_tpu_torch.ops import layout
     from sigfish_tpu_torch.ops import sdtw_wavefront as wfm
@@ -988,6 +1021,17 @@ def main() -> None:
     t0 = time.time()
     reports = kbuild.build_all()
     print(f"kernels {', '.join(reports)} built in {time.time() - t0:.2f} s")
+    # the older scan designs phase 13 times beside the kernel, each built
+    # from its checkout's source
+    old_scans = {}
+    for spec in args.old:
+        label, _, d = spec.partition("=")
+        src = os.path.join(d, "sigfish_tpu_torch", "csrc", "scan.cu")
+        if not label or not os.path.exists(src):
+            fail(f"--old {spec}: want LABEL=DIR with DIR/sigfish_tpu_torch/csrc/scan.cu")
+        old_scans[label] = ssm._declare(build_source(src, f"scan_{label}"))
+    if old_scans:
+        print(f"older scan designs built: {', '.join(old_scans)}")
     for kname, rep in reports.items():
         insts = ptxas_instances(rep)
         other = []
@@ -2714,21 +2758,7 @@ def main() -> None:
 
         # ------------------------------------------------------------ 13
         phase("13 engines")
-        from sigfish_tpu_torch.ops import sdtw_scan as ssm
-
         t13 = time.time()
-
-        def scan_batch(seed, B, Q, W_, every):
-            """B seeded reads of Q samples, one in `every` clipped (qlen
-            25 .. W-1) and the last of qlen 0: (queries, one-hot) on the
-            card."""
-            rng13 = np.random.default_rng(seed)
-            ql = np.full(B, W_, np.int32)
-            ql[every - 1 :: every] = rng13.integers(25, W_, size=ql[every - 1 :: every].size)
-            ql[-1] = 0
-            qb_, _, oh_ = layout.make_query_batch(
-                [rng13.standard_normal(int(x)).astype(np.float32) for x in ql], pad_q=Q)
-            return torch.from_numpy(qb_).to(dev), torch.from_numpy(oh_).to(dev)
 
         def scan_ref(st):
             return (torch.from_numpy(st.ref_cat).to(dev), torch.from_numpy(st.reset).to(dev))
@@ -2740,8 +2770,8 @@ def main() -> None:
         # 20,000 .. 40,000 (the '-' track's start, a reset, inside), Q=512
         # one-shot and std over phase 7's first CUT3_DIAGS columns (a reset
         # every ~1,000), and a carry chain of three uneven segments
-        q64, oh64 = scan_batch(SEED + 13, 64, pad_q, W, 3)
-        q64r, oh64r = scan_batch(SEED + 14, 64, pad_q7, W7, 3)
+        q64, oh64 = scan_batch(SEED + 13, 64, pad_q, W, 3, dev)
+        q64r, oh64r = scan_batch(SEED + 14, 64, pad_q7, W7, 3, dev)
         cut4 = (y4[20_000:40_000], r4[20_000:40_000])
         cut7 = (y7[:CUT3_DIAGS], r7[:CUT3_DIAGS])
         if not (bool(cut4[1].any()) and int(cut7[1].sum()) > 1):
@@ -2770,34 +2800,58 @@ def main() -> None:
         if not ok:
             fail("the scan kernel's chained segments differ from its one-shot launch")
 
-        # the launch at the main path's shapes, timed and held to one plain
-        # run each: B=512 over phase 4's whole reference at Q=256 and over
-        # phase 7's at Q=512. The bound counts the function's operations a
-        # cell; the kernel's split into runs issues RUN_OPS_PER_CELL more,
-        # printed as a second bound beside it
-        def scan_times(label, seed, Q, W_, y_, r_):
-            q_, oh_ = scan_batch(seed, BATCH, Q, W_, 10)
-            ms_, got = median_ms_out(lambda: ssm.sdtw_scan(q_, oh_, y_, r_), 3)
+        # the launch at the main path's shapes, held to one plain run each
+        # and timed in turns with the designs of --old (scripts/bench_scan.py's
+        # time_designs: the others, this one twice, the others): B=512 over
+        # phase 4's whole reference at Q=256 and over phase 7's at Q=512. A
+        # warp sweeps a piece of a read's columns in its columns plus 31
+        # steps, so a step's cycles are the launch's over the longest
+        # piece's steps. The bound counts the function's operations a cell;
+        # the kernel's split into runs issues RUN_OPS_PER_CELL more, printed
+        # as a second bound beside it
+        from sigfish_tpu_torch.scripts import bench_scan
+
+        designs = {"new": ssm._library(), **old_scans}
+
+        def scan_times(label, seed, Q, W_, st, y_, r_):
+            q_, oh_ = scan_batch(seed, BATCH, Q, W_, 10, dev)
             plain_ms_, want = once_ms(lambda: ssm.scan_plain(q_, oh_, y_, r_))
             err = hold_plain(f"the scan kernel at {label}, B={BATCH}, Q={Q}, R={y_.shape[0]}",
-                             got, want, masks=(slice(None),))
-            del got, want
+                             ssm.sdtw_scan(q_, oh_, y_, r_), want, masks=(slice(None),))
+            res = bench_scan.time_designs(designs, dict(q=q_, oh=oh_, y=y_, r=r_,
+                                                        reset_h=st.reset), 3, clk_max, want)
+            del want
             R_ = y_.shape[0]
             cells = BATCH * Q * R_
             moved = 4 * BATCH * Q * 2 + 4 * BATCH + 5 * R_ + 4 * BATCH * R_
             b_ms, b_by = bound(ssm.OPS_PER_CELL * cells, moved, issue)
             bi_ms, _ = bound((ssm.OPS_PER_CELL + ssm.RUN_OPS_PER_CELL) * cells, moved, issue)
-            cyc = ms_ * 1e-3 * clk_max * 1e6 / R_
-            print(f"  {ms_:.3f} ms a launch ({cells / ms_ / 1e6:.1f} Gcell/s, {cyc:.1f} SM cycles a "
-                  f"column at the max clock), bound {b_ms:.3f} ms by {b_by} "
-                  f"({ssm.OPS_PER_CELL} operations a cell; share {b_ms / ms_:.3f}; at the "
-                  f"{ssm.OPS_PER_CELL + ssm.RUN_OPS_PER_CELL} the kernel issues {bi_ms:.3f} ms), "
-                  f"plain {plain_ms_:.1f} ms; card: {smi}")
+            new = res["new"]
+            ms_ = new["ms"]
+            print(f"  {ms_:.3f} ms a launch (turns {', '.join(f'{t:.3f}' for t in new['ms_turns'])}; "
+                  f"{cells / ms_ / 1e6:.1f} Gcell/s; {new['pieces']} pieces a read, the longest "
+                  f"{new['longest_piece']} columns; {new['cycles_per_step']:.1f} SM cycles a step of "
+                  f"a warp, {new['cycles_per_column']:.1f} a column of the launch, at the max "
+                  f"clock), bound {b_ms:.3f} ms by {b_by} ({ssm.OPS_PER_CELL} operations a cell; "
+                  f"share {b_ms / ms_:.3f}; at the {ssm.OPS_PER_CELL + ssm.RUN_OPS_PER_CELL} the "
+                  f"kernel issues {bi_ms:.3f} ms), plain {plain_ms_:.1f} ms; card: {smi}")
+            for k in old_scans:
+                d = res[k]
+                print(f"  --old {k}: {d['ms']:.3f} ms (turns "
+                      f"{', '.join(f'{t:.3f}' for t in d['ms_turns'])}; {d['pieces']} pieces, "
+                      f"{d['cycles_per_step']:.1f} SM cycles a step, {d['cycles_per_column']:.1f} a "
+                      f"column), bitwise_vs_plain={d['bitwise_vs_plain']}, within rtol "
+                      f"{bench_scan.RTOL} / atol {bench_scan.ATOL}={d['within_tolerance']}, "
+                      f"max_abs_err={d['max_abs_err']:.3g}; card: {smi}")
             return dict(ms=ms_, plain_ms=plain_ms_, bound_ms=b_ms, bound_by=b_by, err=err,
-                        bound_ms_issued=bi_ms, cycles_per_column=cyc)
+                        bound_ms_issued=bi_ms, cycles_per_column=new["cycles_per_column"],
+                        cycles_per_step=new["cycles_per_step"], pieces=new["pieces"],
+                        designs={k: {x: res[k][x] for x in ("ms", "cycles_per_step",
+                                                             "cycles_per_column")}
+                                 for k in old_scans})
 
-        st4 = scan_times("phase 4's reference", SEED + 15, pad_q, W, y4, r4)
-        st7 = scan_times("phase 7's reference", SEED + 16, pad_q7, W7, y7, r7)
+        st4 = scan_times("phase 4's reference", SEED + 15, pad_q, W, state, y4, r4)
+        st7 = scan_times("phase 7's reference", SEED + 16, pad_q7, W7, state7, y7, r7)
         scan_err = max(scan_err, st4["err"], st7["err"])
         del y4, r4, y7, r7, q64, oh64, q64r, oh64r, cut4, cut7, whole4, parts13, init13
 
@@ -3083,12 +3137,18 @@ def main() -> None:
                 "library_ms": None,
                 "bound_ms_issued": st4["bound_ms_issued"],
                 "cycles_per_column": st4["cycles_per_column"],
+                "cycles_per_step": st4["cycles_per_step"],
+                "pieces": st4["pieces"],
+                "designs": st4["designs"],
                 "ms_q512": st7["ms"],
                 "plain_ms_q512": st7["plain_ms"],
                 "bound_ms_q512": st7["bound_ms"],
                 "bound_ms_issued_q512": st7["bound_ms_issued"],
                 "bound_by_q512": st7["bound_by"],
                 "cycles_per_column_q512": st7["cycles_per_column"],
+                "cycles_per_step_q512": st7["cycles_per_step"],
+                "pieces_q512": st7["pieces"],
+                "designs_q512": st7["designs"],
                 "ptxas": ptxas_table(reports["scan"]),
             },
         ]}

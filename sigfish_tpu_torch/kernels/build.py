@@ -79,18 +79,6 @@ def build_all() -> dict[str, str]:
         return {n: f.result()[1] for n, f in futs.items()}
 
 
-def sass(name: str) -> str | None:
-    """The SASS of csrc/<name>.cu's library (built if needed), as
-    `cuobjdump -sass` prints it; None where the toolkit has no cuobjdump."""
-    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    if not os.path.exists(tool):
-        return None
-    r = subprocess.run([tool, "-sass", build(name)[0]], capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError(f"cuobjdump failed for {name}:\n{r.stderr}")
-    return r.stdout
-
-
 def load_library(name: str) -> ctypes.CDLL:
     """Build csrc/<name>.cu if needed and load it; the caller declares
     its C entry's argument types."""

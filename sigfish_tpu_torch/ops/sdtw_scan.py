@@ -200,11 +200,25 @@ def sdtw_scan(
         return scan_plain(queries, onehot, ref, reset, std=std, init=init)
     if queries.device.type != "cuda":
         raise ValueError(f"sdtw_scan: unsupported device {queries.device}")
+    if queries.shape[1] // LANES not in _KERNEL_ROWS:
+        raise ValueError(f"sdtw_scan: the kernel takes Q = 32 * {_KERNEL_ROWS}; "
+                         f"got Q={queries.shape[1]}")
+    out = launch(_library(), queries, onehot, ref, reset, std, init)
+    sdtw_scan.launches += 1
+    sdtw_scan.launches_std += bool(std)
+    return out
+
+
+sdtw_scan.launches = 0
+sdtw_scan.launches_std = 0
+
+
+def launch(lib: ctypes.CDLL, queries, onehot, ref, reset, std: bool = False, init=None):
+    """One launch of lib's sf_sdtw_scan on the inputs' device and its
+    current stream, uncounted: (last_row (B, R), final column (B, Q)).
+    sdtw_scan's own launch, and the benches' of an older build."""
     B, Q = queries.shape
     R = ref.shape[0]
-    if Q // LANES not in _KERNEL_ROWS:
-        raise ValueError(f"sdtw_scan: the kernel takes Q = 32 * {_KERNEL_ROWS}; got Q={Q}")
-    lib = _library()
     q = queries.contiguous()
     rows = last_rows(onehot)
     y = ref.contiguous()
@@ -221,13 +235,7 @@ def sdtw_scan(
         )
     if err != 0:
         raise RuntimeError(f"sdtw_scan: CUDA launch failed (cudaError {err})")
-    sdtw_scan.launches += 1
-    sdtw_scan.launches_std += bool(std)
     return out, final
-
-
-sdtw_scan.launches = 0
-sdtw_scan.launches_std = 0
 
 _lib: ctypes.CDLL | None = None
 

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ops import sdtw_wavefront as wfm
-from .timing import median_ms, sm_clock_mhz
+from .timing import median_ms, sass_of, sm_clock_mhz
 
 Q = 256
 W = 250
@@ -176,9 +176,9 @@ def main(y=None, r=None) -> dict:
     print(f"B=512 SM cycles per diagonal at the {clk_max:.0f} MHz maximum SM clock (now "
           f"{clk_now:.0f} MHz): " + ", ".join(f"warps={w} {c:.1f}" for w, c in cycles.items()))
 
-    from ..kernels.build import sass
+    from ..kernels.build import build
 
-    text = sass("wavefront")
+    text = sass_of(build("wavefront")[0])
     per_diag = {}
     if text is None:
         print("SASS: cuobjdump absent, instructions per diagonal not counted")

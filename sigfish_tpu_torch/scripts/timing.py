@@ -1,10 +1,14 @@
 """Timing helpers shared by chip_smoke.py and the benches: the median of
 CUDA-event times, a call's peak memory, a kernel launch's per-case SM
-clocks, the trainer kernels' sweep steps, and the card's SM clock. All
-but the step counts need a CUDA card."""
+clocks, the trainer kernels' sweep steps, the card's SM clock, and the
+build of another checkout's kernel source. All but the step counts need
+a CUDA card (the build, nvcc)."""
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
 import statistics
 import subprocess
 
@@ -109,3 +113,40 @@ def profile_launch(entry, args_fn, steps: np.ndarray, reps: int, what: str) -> d
             "walk_cycles_max": int(walk.max()), "cycles_per_step_largest": float(per[big]),
             "cycles_per_step_median": float(np.median(per)), "sms_used": int((sms > 0).sum()),
             "cases_per_sm_max": int(sms.max())}
+
+
+def build_source(src: str, tag: str) -> ctypes.CDLL:
+    """Compile the CUDA source src (an older checkout's csrc/<name>.cu)
+    with the port's nvcc flags into build/kernels/<tag>-<hash>.so, unless
+    that exists, and load it; the caller declares its C entry."""
+    from ..kernels import build as kbuild
+
+    with open(src, "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(kbuild.NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = os.path.join(kbuild.BUILD_DIR, f"{tag}-{h}.so")
+    if not os.path.exists(so):
+        os.makedirs(kbuild.BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        r = subprocess.run([kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-o", tmp, src],
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{r.stdout}\n{r.stderr}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(so)
+
+
+def sass_of(so: str) -> str | None:
+    """The SASS of a built library, as `cuobjdump -sass` prints it; None
+    where the toolkit has no cuobjdump."""
+    import shutil
+
+    from ..kernels import build as kbuild
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(kbuild.nvcc_path()),
+                                                      "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    r = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed for {so}:\n{r.stderr}")
+    return r.stdout

@@ -3,8 +3,9 @@
 // tests/test_torch_train_emulated.py and tests/test_torch_scan_emulated.py:
 // each block's threads are std::threads that run the kernel's code as
 // written, a warp's 32 in lockstep at every shuffle, ballot and __syncwarp
-// (a barrier exchange), the block's at
-// __syncthreads. Blocks run one after another, so __shared__ variables are
+// (a barrier exchange), the block's at __syncthreads. Blocks run one after
+// another, the last first (the card runs them in no set order, so a kernel
+// that leans on launch order fails here), so __shared__ variables are
 // statics and the dynamic shared memory a buffer a block. The test rewrites
 // each launch `k<<<grid, block, smem, stream>>>(args)` as
 // `emu_launch(grid, block, smem, k, args)` and the one inline PTX line; it
@@ -93,7 +94,7 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 template <class K, class... A>
 void emu_launch(int grid, int block, size_t smem, K kernel, A... args) {
-  for (int b = 0; b < grid; ++b) {
+  for (int b = grid - 1; b >= 0; --b) {
     std::vector<std::unique_ptr<EmuWarp>> warps;
     for (int w = 0; w < block / 32; ++w) warps.emplace_back(new EmuWarp);
     std::barrier<> bar(block);

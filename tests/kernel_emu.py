@@ -5,7 +5,9 @@ PTX line) rewritten for tests/cuda_emu/cuda_runtime.h (a stand-in runtime
 whose blocks are std::threads, every warp in lockstep at its shuffles and
 ballots), compiled with g++ and bound with the wrappers' own argument
 types. Shared by tests/test_torch_train_emulated.py,
-tests/test_torch_train.py and tests/test_torch_scan_emulated.py."""
+tests/test_torch_train.py and tests/test_torch_scan_emulated.py; the
+card tests (tests/test_torch_gpu.py) take scan.cu's piece-count rewrite
+from here too."""
 
 from __future__ import annotations
 
@@ -32,6 +34,13 @@ REWRITES = (
     (r"asm volatile\(.*\);", "s = 0;"),
 )
 
+# scan.cu with its piece count settable, for the tests that hold every
+# count to the plain version: emu_pieces when nonzero, else the source's
+# own rule (the source has no such knob)
+PIECES = (r'(extern "C" int sf_sdtw_scan_pieces\(int B, int R\) \{)',
+          r"\1\n  if (emu_pieces) return emu_pieces;")
+PIECES_PRELUDE = 'extern "C" { int emu_pieces = 0; }'
+
 # each source's rewrites (every one must match) and its C entry's
 # declaration
 KERNEL_REWRITES = {"gap_dtw": REWRITES, "banded_dtw": REWRITES, "scan": (LAUNCH,)}
@@ -40,18 +49,23 @@ DECLARE = {"gap_dtw": lambda lib: td._declare(lib, "gap_dtw"),
            "scan": ss._declare}
 
 
-def emulated_source(name: str, extra=(), prelude: str = "") -> str:
-    """csrc/<name>.cu rewritten by its KERNEL_REWRITES and then extra's (pattern,
-    replacement) pairs, each of which must match; prelude goes after the
-    includes."""
+def rewritten_source(name: str, rewrites=(), prelude: str = "") -> str:
+    """csrc/<name>.cu rewritten by the (pattern, replacement) pairs, each
+    of which must match; prelude goes after the includes."""
     with open(os.path.join(CSRC, f"{name}.cu")) as f:
         src = f.read()
-    for pat, rep in (*KERNEL_REWRITES[name], *extra):
+    for pat, rep in rewrites:
         src, k = re.subn(pat, rep, src)
         assert k, f"{name}.cu: nothing matches {pat!r}"
     if prelude:
         src = src.replace("\nnamespace {", f"\n{prelude}\nnamespace {{", 1)
     return src
+
+
+def emulated_source(name: str, extra=(), prelude: str = "") -> str:
+    """csrc/<name>.cu rewritten by its KERNEL_REWRITES and then extra's
+    pairs; prelude goes after the includes."""
+    return rewritten_source(name, (*KERNEL_REWRITES[name], *extra), prelude)
 
 
 def build(out_dir, name: str, extra=(), prelude: str = "", tag: str = "") -> ctypes.CDLL:

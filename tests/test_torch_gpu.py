@@ -265,6 +265,87 @@ def test_scan_kernel_bitwise_vs_plain(cuda_device, W, Q, std):
     assert _same_bytes(torch.cat(parts, 1), want[0]) and _same_bytes(init, want[1])
 
 
+def _scan_resets(seed, B, Q, R, resets, W=None):
+    """(queries, one-hot, ref, reset) with reset flags at the given
+    columns: B reads, full-length, clipped and the last of qlen 0."""
+    rng = np.random.default_rng(seed)
+    W = W or Q - 3
+    reset = np.zeros(R, bool)
+    reset[list(resets)] = True
+    qlens = rng.integers(1, W + 1, size=B)
+    qlens[0], qlens[-1] = W, 0
+    qb, _, oh = layout.make_query_batch(
+        [rng.standard_normal(int(n)).astype(np.float32) for n in qlens], pad_q=Q)
+    return qb, oh, rng.standard_normal(R).astype(np.float32), reset
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("std", [False, True])
+def test_scan_kernel_pieces_bitwise_vs_plain(cuda_device, std):
+    """B=45 reads (not a multiple of a block's 4 warps) over 20,000
+    columns, the source's rule splitting each read into 19 pieces at
+    uneven resets (some ranges without one): one-shot and from a carry
+    column (no reset at column 0), every output and the final column
+    bitwise to the plain version."""
+    from sigfish_tpu_torch.scripts.bench_scan import pieces
+
+    rng = np.random.default_rng(7 + std)
+    resets = np.unique(np.concatenate([[0], rng.integers(1, 20_000, 30), [4_000, 4_001]]))
+    qb, oh, ref, reset = _scan_resets(11 + std, 45, 256, 20_000, resets)
+    assert len(pieces(ss._library(), reset, 45)) > 8
+    args = [torch.from_numpy(a).to(cuda_device) for a in (qb, oh, ref, reset)]
+    init = torch.from_numpy(rng.uniform(0, 60, qb.shape).astype(np.float32)).to(cuda_device)
+    args[3][0] = False
+    for c0 in (None, init):
+        got = ss.sdtw_scan(*args, std=std, init=c0)
+        want = ss.scan_plain(*args, std=std, init=c0)
+        assert _same_bytes(got[0], want[0]) and _same_bytes(got[1], want[1]), c0 is None
+
+
+@pytest.fixture(scope="module")
+def scan_any_pieces(tmp_path_factory):
+    """csrc/scan.cu built on the card with its piece count settable
+    (emu_pieces, tests/kernel_emu.py's rewrite), and the setter."""
+    import ctypes
+
+    from kernel_emu import PIECES, PIECES_PRELUDE, rewritten_source
+    from sigfish_tpu_torch.scripts.timing import build_source
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's CUDA kernels run only on the card")
+    src = tmp_path_factory.mktemp("scan_pieces") / "scan_pieces.cu"
+    src.write_text(rewritten_source("scan", (PIECES,), PIECES_PRELUDE))
+    lib = ss._declare(build_source(str(src), "scan_pieces"))
+    return lib, lambda k: setattr(ctypes.c_int.in_dll(lib, "emu_pieces"), "value", k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("std", [False, True])
+def test_scan_kernel_scores_equal_for_every_piece_count(cuda_device, scan_any_pieces, std):
+    """One launch at every piece count from 1 to 40 (a piece as short as
+    a few columns, ranges without a reset): the rows and the final
+    column bit for bit the plain version's, one-shot and from a carry
+    column; R = 20 and R = 1 (shorter than the 31 steps of fill) too."""
+    lib, set_k = scan_any_pieces
+    rng = np.random.default_rng(3 + std)
+    cases = [(6, 128, 3_000, np.unique(np.concatenate([[0, 1, 2], rng.integers(3, 3_000, 25)]))),
+             (5, 64, 20, [0, 7]), (5, 64, 1, [0])]
+    try:
+        for B, Q, R, resets in cases:
+            args = [torch.from_numpy(a).to(cuda_device)
+                    for a in _scan_resets(B + R, B, Q, R, resets)]
+            init = torch.from_numpy(rng.uniform(0, 60, (B, Q)).astype(np.float32)).to(cuda_device)
+            for c0 in (None, init):
+                want = ss.scan_plain(*args, std=std, init=c0)
+                for k in range(1, 41):
+                    set_k(k)
+                    got = ss.launch(lib, *args, std=std, init=c0)
+                    torch.cuda.synchronize()
+                    assert _same_bytes(got[0], want[0]) and _same_bytes(got[1], want[1]), (R, k)
+    finally:
+        set_k(0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["dna", "rna_std"])
 def test_scan_engine_on_the_card_vs_cpu(cuda_device, tmp_path, kind):
@@ -323,8 +404,10 @@ def _load_smoke():
 
 def _same_bytes(a, b) -> bool:
     a, b = a.contiguous().cpu(), b.contiguous().cpu()
+    # flattened first: a contiguous (n, 1) tensor may keep a stride of n
+    # on its last dimension, which a byte view refuses
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.view(torch.uint8), b.view(torch.uint8))
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
 @pytest.mark.gpu
