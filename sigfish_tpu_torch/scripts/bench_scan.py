@@ -41,24 +41,14 @@ import numpy as np
 import torch
 
 from ..ops import sdtw_scan as ss
-from .timing import build_source, median_ms, sass_of, sm_clock_mhz
+from .timing import REPO, build_source, load_smoke, median_ms, same, sass_of, sm_clock_mhz
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 RTOL, ATOL = 2e-5, 2e-4   # another sum order: the JAX package's tolerance for this engine
-
-
-def load_smoke():
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def pieces(lib, reset: np.ndarray, B: int) -> list[tuple[int, int]]:
     """The column ranges [j0, j1) lib's kernel sweeps a read in, one warp
-    each (csrc/scan.cu's piece_bounds: K near-equal ranges, each start
+    each (csrc/scan.cu's scan_kernel: K near-equal ranges, each start
     snapped forward to its range's first reset, a range without one
     joined to the one before); one range where lib has no pieces."""
     R = reset.size
@@ -184,11 +174,6 @@ def cases(smoke, work: str, dev) -> list[dict]:
     return out
 
 
-def same(a, b) -> bool:
-    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
-                                              b.contiguous().view(torch.int32))
-
-
 def time_designs(designs: dict, case: dict, reps: int, clk_mhz: float, want=None) -> dict:
     """Each design's launch (designs: label -> library, "new" the current
     one) on case, timed in turns: the others, new, new, the others
@@ -214,7 +199,7 @@ def time_designs(designs: dict, case: dict, reps: int, clk_mhz: float, want=None
     for k, lib in designs.items():
         got = ss.launch(lib, q, oh, y, r)
         torch.cuda.synchronize()
-        exact = same(got[0], want[0]) and same(got[1], want[1])
+        exact = same(got, want)
         err = max(float((got[i] - want[i]).abs().max()) for i in (0, 1))
         close = all(torch.allclose(got[i], want[i], rtol=RTOL, atol=ATOL) for i in (0, 1))
         ms = float(np.mean(turns[k]))

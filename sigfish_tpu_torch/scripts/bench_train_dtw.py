@@ -33,18 +33,8 @@ import tempfile
 import torch
 
 from ..ops import train_dtw as td
-from .timing import banded_case_steps, gap_case_steps, profile_launch, sm_clock_mhz, timed_call
-
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def load_smoke():
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+from .timing import (REPO, banded_case_steps, gap_case_steps, load_smoke, profile_launch, same,
+                     sm_clock_mhz, timed_call)
 
 
 def iteration1_batches(work: str, device="cuda", n_dna=None, n_rna=None, smoke=None) -> dict:
@@ -91,12 +81,6 @@ def iteration1_batches(work: str, device="cuda", n_dna=None, n_rna=None, smoke=N
     finally:
         td.gap_pairs, td.banded_pairs = fns
     return first
-
-
-def same(a, b) -> bool:
-    return all(u.dtype == v.dtype and u.shape == v.shape
-               and torch.equal(u.contiguous().view(torch.uint8), v.contiguous().view(torch.uint8))
-               for u, v in zip(a, b))
 
 
 class Batches:

@@ -1,8 +1,9 @@
-"""Timing helpers shared by chip_smoke.py and the benches: the median of
+"""Helpers shared by chip_smoke.py and the benches: the median of
 CUDA-event times, a call's peak memory, a kernel launch's per-case SM
-clocks, the trainer kernels' sweep steps, the card's SM clock, and the
-build of another checkout's kernel source. All but the step counts need
-a CUDA card (the build, nvcc)."""
+clocks, the trainer kernels' sweep steps, the card's SM clock, the build
+of another checkout's kernel source and its SASS, a byte comparison of
+outputs, and chip_smoke.py loaded as a module. The timings need a CUDA
+card, the build nvcc."""
 
 from __future__ import annotations
 
@@ -14,6 +15,27 @@ import subprocess
 
 import numpy as np
 import torch
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def load_smoke():
+    """The checkout's chip_smoke.py as a module: its workload generators,
+    seeds and sizes."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def same(a, b) -> bool:
+    """Two sequences of tensors equal byte for byte, pairwise."""
+    return all(u.dtype == v.dtype and u.shape == v.shape
+               and torch.equal(u.contiguous().view(torch.uint8), v.contiguous().view(torch.uint8))
+               for u, v in zip(a, b))
 
 
 def median_ms(fn, reps: int) -> float:

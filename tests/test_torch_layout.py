@@ -131,6 +131,7 @@ _MODULES = [
     "sigfish_tpu_torch.scripts",
     "sigfish_tpu_torch.scripts.bench_alu_peak",
     "sigfish_tpu_torch.scripts.bench_carry",
+    "sigfish_tpu_torch.scripts.bench_scan",
     "sigfish_tpu_torch.scripts.bench_train_dtw",
     "sigfish_tpu_torch.scripts.peak_memory",
     "sigfish_tpu_torch.scripts.timing",
