@@ -17,7 +17,7 @@ a step of each instance's step loop. With --old LABEL=DIR the scan.cu of the che
 (DIR/sigfish_tpu_torch/csrc/scan.cu) is built with the same flags and
 timed in turns with the current one (old, new, new, old); its outputs
 are held to the plain run bit for bit, or within rtol 2e-5 / atol 2e-4
-where it sums in another order (PR 15's design). With --placement it
+where it sums in another order (the earlier warp-scan design). With --placement it
 also builds each design with a probe (PROBE_REWRITES) and prints where
 its long warps ran: the most and fewest on one SM and on one of an SM's
 four schedulers.
