@@ -121,12 +121,15 @@ def trace_path(trace_dir: str, host_id: int) -> str:
 def run_traced(core, out_fp, trace_dir: str, host_id: int) -> None:
     """run_dtw under torch.profiler: CPU activity, and CUDA activity
     (every kernel, the ctypes-launched hand kernels included) when the
-    run's device is CUDA; the Chrome trace goes to trace_path(). A trace
-    that cannot be written raises."""
+    run's device is CUDA, on every thread, so the pool's and the drain's
+    sf.* spans (runtime/trace.py) are there beside the caller's; the
+    Chrome trace goes to trace_path(). A trace that cannot be written
+    raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from .runtime.pipeline import run_dtw
+    from .runtime.trace import profile_all_threads
 
     cuda = core.device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -135,7 +138,7 @@ def run_traced(core, out_fp, trace_dir: str, host_id: int) -> None:
         os.makedirs(trace_dir, exist_ok=True)
     except OSError as e:
         raise RuntimeError(f"--trace {trace_dir}: cannot create the directory: {e}") from e
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, experimental_config=profile_all_threads()) as prof:
         run_dtw(core, out_fp)
         if cuda:
             torch.cuda.synchronize(core.device)
@@ -314,6 +317,7 @@ def dtw_main(argv: list[str]) -> int:
         f"Peak RAM: {peakrss()/1024.0/1024.0/1024.0:.3f} GB\n"
     )
     log_debug("kernel launches: " + " ".join(f"{k}={v}" for k, v in kernel_launches().items()))
+    log_debug("counts: " + " ".join(f"{k}={v}" for k, v in core.counts.items()))
     core.close()
     if out_fp is not None and out_fp is not sys.stdout:
         out_fp.close()

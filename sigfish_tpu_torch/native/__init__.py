@@ -11,6 +11,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 
@@ -24,6 +25,8 @@ _SO = os.path.join(
 )
 
 _lib = None
+# blow5_decode's last outcome on each thread (took_native_decode)
+_decoded = threading.local()
 
 
 def _build() -> bool:
@@ -294,7 +297,23 @@ def meanf_seq(x: np.ndarray) -> float | None:
 def blow5_decode(blob: bytes, rec_press: str, sig_press: str):
     """Decode one BLOW5 record blob. Returns (read_id, read_group,
     digitisation, offset, range, sampling_rate, signal i16) or None when
-    the native path can't handle the compression combination."""
+    the native path can't handle the compression combination (or the
+    library is absent). took_native_decode() tells which, afterwards."""
+    res = _blow5_decode(blob, rec_press, sig_press)
+    _decoded.native = res is not None
+    return res
+
+
+def took_native_decode() -> bool:
+    """Whether this thread's last blow5_decode call, since this function
+    was last called on it, returned a record (False where none was made:
+    the record decoded in Python)."""
+    native = getattr(_decoded, "native", False)
+    _decoded.native = False
+    return native
+
+
+def _blow5_decode(blob: bytes, rec_press: str, sig_press: str):
     lib = _load()
     if lib is None:
         return None

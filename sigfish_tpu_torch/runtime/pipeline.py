@@ -138,6 +138,7 @@ from ..parallel.shard import (
     sharded_topk,
 )
 from ..utils import log_info, log_verbose, log_warning
+from .trace import span
 
 
 @dataclass
@@ -241,6 +242,10 @@ class Core:
         self, fasta_path: str, slow5_path: str, opt: Options,
         state: CoreState | None = None,
     ):
+        with span("sf.setup"):
+            self._setup(fasta_path, slow5_path, opt, state)
+
+    def _setup(self, fasta_path: str, slow5_path: str, opt: Options, state: CoreState | None):
         self.opt = opt
         opt.check_slice()
         # the JAX Core's precedence, with the wavefront kernel where it
@@ -303,7 +308,7 @@ class Core:
                               "rna004": jnn.PORE_RNA004}[opt.pore]
 
         # samples-per-event estimate for the prefix-bounded eventization
-        # fast path (_prepare_read_prefix); EMA-refined from real reads
+        # fast path (_prefix_events); EMA-refined from real reads
         # (after auto-detection, so opt.rna is final)
         self._dwell_ema = 22.0 if opt.rna else 10.0
         self._dwell_lock = threading.Lock()
@@ -411,6 +416,11 @@ class Core:
         self.routes = {"oneshot": 0, "clip_pass": 0, "chunked": 0, "clip_fold": 0,
                        "mesh_tracks": 0, "ring": 0}
         self._routes_lock = threading.Lock()
+        # added once a batch by submit_batch: the records decoded by the
+        # native library and in Python, and the sDTW batch's rows, its
+        # live reads and the bucket's padding
+        self.counts = {"decode_native": 0, "decode_python": 0, "rows_live": 0,
+                       "rows_padded": 0}
         # --profile-cpu on the card: CUDA event pairs around each route's
         # device work, read by span_seconds once the run has drained;
         # "host_stages": around each bucket's work on host_stream, in every
@@ -594,23 +604,25 @@ class Core:
 
     @contextlib.contextmanager
     def _span(self, route: str):
-        """Record CUDA events around the device work queued inside the
-        block, into spans[route], when profiling on the card: on the
-        Core's device's current stream, the end behind the current
-        streams of every --mesh device (where the shards' work ends)."""
-        if not (self.opt.profile and self.device.type == "cuda"):
+        """The block is the trace span sf.sdtw.<route>, and when
+        profiling on the card, CUDA events recorded around the device
+        work queued inside it go into spans[route]: on the Core's
+        device's current stream, the end behind the current streams of
+        every --mesh device (where the shards' work ends)."""
+        with span("sf.sdtw." + route):
+            if not (self.opt.profile and self.device.type == "cuda"):
+                yield
+                return
+            main = torch.cuda.current_stream(self.device)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record(main)
             yield
-            return
-        main = torch.cuda.current_stream(self.device)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record(main)
-        yield
-        for d in {d for row in self.mesh or () for d in row} - {self.device}:
-            main.wait_stream(torch.cuda.current_stream(d))
-        e1.record(main)
-        with self._routes_lock:
-            self.spans[route].append((e0, e1))
+            for d in {d for row in self.mesh or () for d in row} - {self.device}:
+                main.wait_stream(torch.cuda.current_stream(d))
+            e1.record(main)
+            with self._routes_lock:
+                self.spans[route].append((e0, e1))
 
     def span_seconds(self, route: str) -> float:
         """Device seconds inside spans[route] (a --profile-cpu run on the
@@ -1085,6 +1097,7 @@ class ReadWork:
     # (-1 = failed); None = not computed
     device_py: int | None = None
     skip: bool = False  # len_raw_signal==0 or ignored
+    native_decode: bool = False  # the native library decoded the record
     # per-read counter flags, tallied by the main thread (avoids races)
     flag_prefix_fail: bool = False
     flag_ignored: bool = False
@@ -1093,8 +1106,11 @@ class ReadWork:
 
 def _parse_single(core: Core, blob: bytes) -> ReadWork:
     """ref: parse_single sigfish.c:317-328."""
+    from .. import native
+
     w = ReadWork()
     w.rec = core.sf.decode_record(blob)
+    w.native_decode = native.took_native_decode()
     if w.rec.len_raw_signal <= 0:
         w.skip = True
     return w
@@ -1307,8 +1323,35 @@ def _finish_normalise(core: Core, w: ReadWork, start_idx: int, end_idx: int) -> 
     return w
 
 
-def _prepare_read_prefix(core: Core, w: ReadWork) -> ReadWork:
-    """Prefix-bounded parse->events->normalise for one read.
+def _read_events(core: Core, w: ReadWork) -> tuple[int | None, int]:
+    """The events stage of _prepare_reads for one record: (py,
+    start_idx). start_idx >= 0: the prefix-bounded path (_prefix_events)
+    settled the query window, and w's event table is the safe prefix's;
+    -1: w's events are the whole signal's (the exact path), with py the
+    polyA end to hand _normalise_single (None: it finds its own)."""
+    if w.skip:
+        return None, -1
+    opt = core.opt
+    if opt.from_end or opt.query_size <= 0:
+        # --from-end counts its window from the last event, which a
+        # signal prefix cannot know; the exact path ignores an empty
+        # query window
+        _event_single(core, w)
+        return None, -1
+    py, start_idx = _prefix_events(core, w)
+    if start_idx < 0:
+        # exact full-signal path; hand over the polyA result so the
+        # adaptor/polyA scans are not repeated
+        _event_single(core, w)
+        return (py if opt.prefix_size < 0 else None), -1
+    return py, start_idx
+
+
+def _prefix_events(core: Core, w: ReadWork) -> tuple[int, int]:
+    """Prefix-bounded events for one read: (py, start_idx), the polyA
+    end (-1 with -p >= 0) and the query's first event, w's event table
+    the safe prefix's; start_idx -1 where the prefix cannot settle the
+    window (the exact path's to do).
 
     The query window only needs events up to qstart + query_size, and
     event detection is a causal left-to-right scan, so eventizing a
@@ -1317,10 +1360,9 @@ def _prepare_read_prefix(core: Core, w: ReadWork) -> ReadWork:
     polyA end py is found first, on the raw signal, and the query starts
     at the first event at or after it: that answer counts only once an
     event at or after py lies inside the safe prefix, else the prefix
-    grows. Falls back to the exact full-signal path (handing it py) for
-    clipped/ignored reads or when no samples would be saved; the output
-    is bit-identical to that path.
-    """
+    grows. The caller falls back to the exact full-signal path (handing
+    it py) for clipped/ignored reads or when no samples would be saved;
+    the output is bit-identical to that path."""
     opt = core.opt
     if w.pa is None:
         w.pa = w.rec.to_pa()
@@ -1329,9 +1371,6 @@ def _prepare_read_prefix(core: Core, w: ReadWork) -> ReadWork:
     rna = opt.rna
     w2 = (RNA_PARAMS if rna else DNA_PARAMS)["window_length2"]
     q = opt.query_size
-    if q <= 0:
-        # empty query window; the exact path ignores such reads
-        return _normalise_single(core, _event_single(core, w))
     need_past_start = max(q, 25)  # covers the ignored(<start+25) and
     # too_short(end>n) decisions: n_events >= start + max(q,25) forces
     # both checks to the not-clipped branch, matching the full run
@@ -1384,7 +1423,7 @@ def _prepare_read_prefix(core: Core, w: ReadWork) -> ReadWork:
                 w.event_length = et.length[:n_safe]
                 w.event_mean = et.mean[:n_safe].copy()
                 w.n_events = n_safe
-                return _finish_normalise(core, w, start_idx, start_idx + q)
+                return py, start_idx
             # refine the bound from the observed local event density
             k = min(64, n_safe - 1)
             d_loc = float(starts[-1] - starts[-1 - k]) / k
@@ -1392,26 +1431,34 @@ def _prepare_read_prefix(core: Core, w: ReadWork) -> ReadWork:
             S = int(starts[-1] + missing * d_loc * 1.3) + 4 * w2 + 64
         else:
             S *= 3
-    # exact full-signal path; hand over the polyA result so the
-    # adaptor/polyA scans are not repeated
-    return _normalise_single(
-        core, _event_single(core, w), py=py if opt.prefix_size < 0 else None
-    )
+    return py, -1
+
+
+def _prepare_reads(core: Core, blobs: list[bytes]) -> list[ReadWork]:
+    """Fused parse + event + normalise for a pool chunk of records
+    (default mode), each stage over the chunk in turn, so each is one
+    trace span a chunk (sf.decode, sf.events, sf.normalise): a range a
+    read would cost more than the stage's own work in a traced run.
+
+    ref: work_per_single_read sigfish.c:995-1001. The events are
+    prefix-bounded (_prefix_events) where that settles the window, else
+    the whole signal's (_read_events).
+    """
+    with span("sf.decode"):
+        works = [_parse_single(core, b) for b in blobs]
+    with span("sf.events"):
+        found = [_read_events(core, w) for w in works]
+    q = core.opt.query_size
+    with span("sf.normalise"):
+        return [
+            _normalise_single(core, w, py=py) if st < 0 else _finish_normalise(core, w, st, st + q)
+            for w, (py, st) in zip(works, found)
+        ]
 
 
 def _prepare_read(core: Core, blob: bytes) -> ReadWork:
-    """Fused parse + event + normalise for one read (default mode).
-
-    ref: work_per_single_read sigfish.c:995-1001. --from-end takes the
-    exact full-signal path: its window is counted from the last event,
-    which a signal prefix cannot know.
-    """
-    w = _parse_single(core, blob)
-    if w.skip:
-        return w
-    if core.opt.from_end:
-        return _normalise_single(core, _event_single(core, w))
-    return _prepare_read_prefix(core, w)
+    """_prepare_reads of one record."""
+    return _prepare_reads(core, [blob])[0]
 
 
 def _backtrack_best(
@@ -1487,15 +1534,20 @@ def _host_array(copy) -> np.ndarray:
     return host.numpy()
 
 
+def _pool_chunks(pool, fn, items, chunk: int = 32):
+    """Order-preserving parallel map of fn, which maps a list to a list
+    of as many, over chunks of ~chunk items: one future a chunk."""
+    items = list(items)
+    if pool is None or len(items) <= chunk:
+        return fn(items)
+    slices = [items[i : i + chunk] for i in range(0, len(items), chunk)]
+    return [y for ch in pool.map(fn, slices) for y in ch]
+
+
 def _pool_map(pool, fn, items, chunk: int = 32):
     """Order-preserving parallel map in chunks: one future per ~chunk
     items instead of one per item."""
-    items = list(items)
-    if pool is None or len(items) <= chunk:
-        return [fn(x) for x in items]
-    slices = [items[i : i + chunk] for i in range(0, len(items), chunk)]
-    out = pool.map(lambda sl: [fn(x) for x in sl], slices)
-    return [y for ch in out for y in ch]
+    return _pool_chunks(pool, lambda sl: [fn(x) for x in sl], items, chunk)
 
 
 def submit_batch(core: Core, blobs: list[bytes]) -> PendingBatch:
@@ -1506,59 +1558,78 @@ def submit_batch(core: Core, blobs: list[bytes]) -> PendingBatch:
     # ---- host stages (parallel over reads); --profile-cpu runs them
     # stage-by-stage with per-stage wall-clock accumulation
     # (ref: process_db sigfish.c:1021-1042)
-    def _map(fn, items):
-        return _pool_map(core._pool, fn, items)
+    def _map(fn, items, name):
+        def each(sl):  # a chunk is one trace span
+            with span(name):
+                return [fn(x) for x in sl]
+        return _pool_chunks(core._pool, each, items)
 
     device_stages = opt.host_stages == "device"
-    if opt.profile:
-        t0 = time.time()
-        works = _map(lambda b: _parse_single(core, b), blobs)
-        core.parse_time += time.time() - t0
-        t0 = time.time()
-        if device_stages:
-            _event_batch_device(core, works)
+    with span("sf.prep"):
+        if opt.profile:
+            t0 = time.time()
+            works = _map(lambda b: _parse_single(core, b), blobs, "sf.decode")
+            core.parse_time += time.time() - t0
+            t0 = time.time()
+            if device_stages:
+                with span("sf.events"):
+                    _event_batch_device(core, works)
+            else:
+                works = _map(lambda w: _event_single(core, w), works, "sf.events")
+            core.event_time += time.time() - t0
+            t0 = time.time()
+            works = _map(lambda w: _normalise_single(core, w, py=w.device_py), works,
+                         "sf.normalise")
+            core.normalise_time += time.time() - t0
+        elif device_stages:
+            # parse on the pool, the batch's events (and polyA ends) on
+            # the device from this thread, then the per-read windows on
+            # the pool
+            works = _map(lambda b: _parse_single(core, b), blobs, "sf.decode")
+            with span("sf.events"):
+                _event_batch_device(core, works)
+            works = _map(lambda w: _normalise_single(core, w, py=w.device_py), works,
+                         "sf.normalise")
         else:
-            works = _map(lambda w: _event_single(core, w), works)
-        core.event_time += time.time() - t0
-        t0 = time.time()
-        works = _map(lambda w: _normalise_single(core, w, py=w.device_py), works)
-        core.normalise_time += time.time() - t0
-    elif device_stages:
-        # parse on the pool, the batch's events (and polyA ends) on the
-        # device from this thread, then the per-read windows on the pool
-        works = _map(lambda b: _parse_single(core, b), blobs)
-        _event_batch_device(core, works)
-        works = _map(lambda w: _normalise_single(core, w, py=w.device_py), works)
-    else:
-        works = _map(lambda b: _prepare_read(core, b), blobs)
-    dtw_t0 = time.time()
+            works = _pool_chunks(core._pool, lambda sl: _prepare_reads(core, sl), blobs)
+        dtw_t0 = time.time()
 
-    for w in works:
-        stats.prefix_fail += w.flag_prefix_fail
-        stats.ignored += w.flag_ignored
-        stats.too_short += w.flag_too_short
+        n_native = 0
+        for w in works:
+            n_native += w.native_decode
+            stats.prefix_fail += w.flag_prefix_fail
+            stats.ignored += w.flag_ignored
+            stats.too_short += w.flag_too_short
 
-    live = [i for i, w in enumerate(works) if not w.skip]
-    pending = PendingBatch(works=works, stats=stats, live=live, dtw_t0=dtw_t0)
+        live = [i for i, w in enumerate(works) if not w.skip]
+        pending = PendingBatch(works=works, stats=stats, live=live, dtw_t0=dtw_t0)
+        nb = bucket = 0
+        if live:
+            # ---- device stage: pad the batch to a 64 / power-of-two bucket
+            queries = [works[i].query for i in live]
+            nb = len(queries)
+            bucket = 64
+            while bucket < nb:
+                bucket *= 2
+            bucket = min(bucket, max(64, opt.batch_size))
+            while len(queries) < bucket:
+                # dummy slots carry a full-width zero query so they ride
+                # the uniform candidate path (their results are never read)
+                queries.append(np.zeros(max(opt.query_size, 1), dtype=np.float32))
+            qb, qlens, _ = make_query_batch(queries, pad_q=core.pad_q)
+    with core._routes_lock:
+        c = core.counts
+        c["decode_native"] += n_native
+        c["decode_python"] += len(works) - n_native
+        c["rows_live"] += nb
+        c["rows_padded"] += bucket - nb
     if not live:
         return pending
-
-    # ---- device stage: pad the batch to a 64 / power-of-two bucket
-    queries = [works[i].query for i in live]
-    nb = len(queries)
-    bucket = 64
-    while bucket < nb:
-        bucket *= 2
-    bucket = min(bucket, max(64, opt.batch_size))
-    while len(queries) < bucket:
-        # dummy slots carry a full-width zero query so they ride the
-        # uniform candidate path (their results are never read)
-        queries.append(np.zeros(max(opt.query_size, 1), dtype=np.float32))
-    qb, qlens, _ = make_query_batch(queries, pad_q=core.pad_q)
-    if opt.dtw_std:
-        pending.handle = core.sdtw_std_corners_submit(qb, qlens, n_live=nb)
-    else:
-        pending.handle = core.sdtw_candidates_submit(qb, qlens, n_live=nb)
+    with span("sf.sdtw_queue"):
+        if opt.dtw_std:
+            pending.handle = core.sdtw_std_corners_submit(qb, qlens, n_live=nb)
+        else:
+            pending.handle = core.sdtw_candidates_submit(qb, qlens, n_live=nb)
     return pending
 
 
@@ -1573,99 +1644,103 @@ def finish_batch(core: Core, pending: PendingBatch) -> tuple[list[str | None], B
             core.dtw_time += time.time() - pending.dtw_t0
         return [None] * len(works), stats
     offs = core.track_offsets
-    if opt.dtw_std:
-        corners = core.sdtw_std_corners_collect(pending.handle)
-        # std DTW's candidates: one per non-empty track, its corner, in
-        # track order (ref sigfish.c:914-925)
-        cand_track = [t for t, size in enumerate(core.track_sizes) if size > 0]
-        cand_pos = np.asarray([core.track_sizes[t] - 1 for t in cand_track])
-    else:
-        top_s, top_p = core.sdtw_candidates_collect(pending.handle)
-
-    # pass 1: winner selection per read (cheap host work)
-    winners = []  # (w, t, pos_end_local, d1, d2, rid, strand)
-    for slot, i in enumerate(live):
-        w = works[i]
+    with span("sf.collect"):
         if opt.dtw_std:
-            best, d1, d2 = rank_candidates(corners[slot, cand_track], cand_pos)
-            if best < 0:
-                w.out = None
-                continue
-            t = cand_track[best]
-            pos_end_local = int(cand_pos[best])
+            corners = core.sdtw_std_corners_collect(pending.handle)
+            # std DTW's candidates: one per non-empty track, its corner, in
+            # track order (ref sigfish.c:914-925)
+            cand_track = [t for t, size in enumerate(core.track_sizes) if size > 0]
+            cand_pos = np.asarray([core.track_sizes[t] - 1 for t in cand_track])
         else:
-            s0 = float(top_s[slot, 0])
-            if top_p[slot, 0] < 0 or s0 >= 1e37:
-                w.out = None
-                continue
-            d1 = s0
-            d2 = float(top_s[slot, 1])
-            if d2 >= 1e37:
-                d2 = float("inf")
-            pos_global = int(top_p[slot, 0])
-            t = int(np.searchsorted(offs, pos_global, side="right")) - 1
-            pos_end_local = pos_global - int(offs[t])
-        rid, strand = core.track_meta[t]
-        winners.append((w, t, pos_end_local, d1, d2, rid, strand))
+            top_s, top_p = core.sdtw_candidates_collect(pending.handle)
+
+    with span("sf.format"):
+        # pass 1: winner selection per read (cheap host work)
+        winners = []  # (w, t, pos_end_local, d1, d2, rid, strand)
+        for slot, i in enumerate(live):
+            w = works[i]
+            if opt.dtw_std:
+                best, d1, d2 = rank_candidates(corners[slot, cand_track], cand_pos)
+                if best < 0:
+                    w.out = None
+                    continue
+                t = cand_track[best]
+                pos_end_local = int(cand_pos[best])
+            else:
+                s0 = float(top_s[slot, 0])
+                if top_p[slot, 0] < 0 or s0 >= 1e37:
+                    w.out = None
+                    continue
+                d1 = s0
+                d2 = float(top_s[slot, 1])
+                if d2 >= 1e37:
+                    d2 = float("inf")
+                pos_global = int(top_p[slot, 0])
+                t = int(np.searchsorted(offs, pos_global, side="right")) - 1
+                pos_end_local = pos_global - int(offs[t])
+            rid, strand = core.track_meta[t]
+            winners.append((w, t, pos_end_local, d1, d2, rid, strand))
 
     # pass 2: winner backtracks (native calls release the GIL -> the
     # thread pool parallelizes them on multi-core hosts)
-    paths = _pool_map(
-        core._pool, lambda a: _backtrack_best(core, a[0], a[1], a[2]), winners
-    )
+    with span("sf.backtrack"):
+        paths = _pool_map(
+            core._pool, lambda a: _backtrack_best(core, a[0], a[1], a[2]), winners
+        )
 
-    # pass 3: coordinates + formatting
-    for (w, t, pos_end_local, d1, d2, rid, strand), (pos_st_local, r2q) in zip(winners, paths):
-        # strand flip, ref sigfish.c:971-977
-        rlen = core.ref.ref_lengths[rid]
-        if strand == "+":
-            pos_st, pos_end = pos_st_local, pos_end_local
-        else:
-            pos_st, pos_end = rlen - pos_end_local, rlen - pos_st_local
-        pos_st += core.ref.ref_st_offset[rid]
-        pos_end += core.ref.ref_st_offset[rid]
+    with span("sf.format"):
+        # pass 3: coordinates + formatting
+        for (w, t, pos_end_local, d1, d2, rid, strand), (pos_st_local, r2q) in zip(winners, paths):
+            # strand flip, ref sigfish.c:971-977
+            rlen = core.ref.ref_lengths[rid]
+            if strand == "+":
+                pos_st, pos_end = pos_st_local, pos_end_local
+            else:
+                pos_st, pos_end = rlen - pos_end_local, rlen - pos_st_local
+            pos_st += core.ref.ref_st_offset[rid]
+            pos_end += core.ref.ref_st_offset[rid]
 
-        mapq = compute_mapq(d1, d2)
+            mapq = compute_mapq(d1, d2)
 
-        # raw index recovery, ref aln_to_str sigfish.c:796-815
-        start_ev = w.qstart
-        end_ev = w.qend - 1
-        start_raw = int(w.event_start[start_ev])
-        end_raw = int(w.event_start[end_ev]) + int(np.float32(w.event_length[end_ev]))
-        query_size = end_ev - start_ev
-        if opt.sam:
-            w.out = sam_line(
-                w.rec.read_id,
-                strand,
-                core.ref.ref_names[rid],
-                pos_st,
-                pos_end,
-                mapq,
-                query_size,
-                start_raw,
-                end_raw,
-                w.qstart,
-                r2q,
-                w.event_start,
-                w.event_length,
-                opt.rna,
-            )
-        else:
-            w.out = paf_line(
-                w.rec.read_id,
-                w.rec.len_raw_signal,
-                start_raw,
-                end_raw,
-                strand,
-                core.ref.ref_names[rid],
-                core.ref.ref_seq_lengths[rid],
-                pos_st,
-                pos_end,
-                d1,
-                d2,
-                mapq,
-                query_size,
-            )
+            # raw index recovery, ref aln_to_str sigfish.c:796-815
+            start_ev = w.qstart
+            end_ev = w.qend - 1
+            start_raw = int(w.event_start[start_ev])
+            end_raw = int(w.event_start[end_ev]) + int(np.float32(w.event_length[end_ev]))
+            query_size = end_ev - start_ev
+            if opt.sam:
+                w.out = sam_line(
+                    w.rec.read_id,
+                    strand,
+                    core.ref.ref_names[rid],
+                    pos_st,
+                    pos_end,
+                    mapq,
+                    query_size,
+                    start_raw,
+                    end_raw,
+                    w.qstart,
+                    r2q,
+                    w.event_start,
+                    w.event_length,
+                    opt.rna,
+                )
+            else:
+                w.out = paf_line(
+                    w.rec.read_id,
+                    w.rec.len_raw_signal,
+                    start_raw,
+                    end_raw,
+                    strand,
+                    core.ref.ref_names[rid],
+                    core.ref.ref_seq_lengths[rid],
+                    pos_st,
+                    pos_end,
+                    d1,
+                    d2,
+                    mapq,
+                    query_size,
+                )
 
     if opt.profile:
         core.dtw_time += time.time() - pending.dtw_t0
@@ -1713,10 +1788,11 @@ def run_dtw(core: Core, out_fp) -> None:
             core.process_db_time += time.time() - t0
         progress(stats.n_rec, stats.sum_bytes, "processed")
         t0 = time.time()
-        for line in lines:
-            if line is not None:
-                out_fp.write(line)
-        out_fp.flush()
+        with span("sf.output"):
+            for line in lines:
+                if line is not None:
+                    out_fp.write(line)
+            out_fp.flush()
         core.output_time += time.time() - t0
         core.total_reads += stats.n_rec
         core.sum_bytes += stats.sum_bytes
@@ -1748,14 +1824,15 @@ def run_dtw(core: Core, out_fp) -> None:
             max_recs = opt.batch_size
             if opt.rec_limit is not None:
                 max_recs = min(max_recs, opt.rec_limit - consumed)
-            blobs = (
-                core.sf.read_batch(
-                    max_recs, opt.batch_size_bytes,
-                    shard_id=opt.shard_id, n_shards=opt.n_shards,
+            with span("sf.read"):
+                blobs = (
+                    core.sf.read_batch(
+                        max_recs, opt.batch_size_bytes,
+                        shard_id=opt.shard_id, n_shards=opt.n_shards,
+                    )
+                    if max_recs > 0
+                    else []
                 )
-                if max_recs > 0
-                else []
-            )
             consumed += len(blobs)
             core.load_db_time += time.time() - t0
             new_pending = None
@@ -1777,7 +1854,8 @@ def run_dtw(core: Core, out_fp) -> None:
                 done = True
 
             if drain_fut is not None:
-                drain_fut.result()
+                with span("sf.drain_wait"):
+                    drain_fut.result()
                 drain_fut = None
             elif pending is not None:
                 drain(pending)

@@ -369,14 +369,22 @@ def test_cuda_hosts_without_a_card_fail(dna, tmp_path):
 
 def test_trace_on_the_cpu(dna8, tmp_path, capsys):
     """`--trace DIR` on the CPU: the PAF is unchanged (sigfish_tpu's) and
-    DIR holds a Chrome trace (JSON) with the run's CPU events; -v 5
-    reports each kernel's launches in the process (none on the CPU)."""
+    DIR holds a Chrome trace (JSON) with the run's CPU events and its
+    sf.* spans; -v 5 reports each kernel's launches in the process (none
+    on the CPU) and the Core's counts (8 records decoded, one 64-row
+    bucket a batch)."""
     out, trace = tmp_path / "t.paf", tmp_path / "trace"
     assert cli.main(["dtw", *dna8, "--device", "cpu", "-K", str(K), "-t", "2", "-v", "5",
                      "--trace", str(trace), "-o", str(out)]) == 0
+    err = capsys.readouterr().err
     assert ("[DEBUG] kernel launches: sdtw_wavefront=0 sdtw_wavefront_carry=0 alu_peak=0 "
-            "events=0 polya_end=0") in capsys.readouterr().err
+            "events=0 polya_end=0") in err
+    counts = next(line for line in err.splitlines() if line.startswith("[DEBUG] counts: "))
+    c = dict(kv.split("=") for kv in counts.split(": ", 1)[1].split())
+    assert int(c["decode_native"]) + int(c["decode_python"]) == 8
+    assert int(c["rows_live"]) + int(c["rows_padded"]) == 64 * (8 // K)
     assert out.read_text() == run_jax(*dna8, "native", batch_size=K)[0]
     with open(cli.trace_path(str(trace), 0)) as fh:
         events = json.load(fh)["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    assert any(e.get("name") == "sf.prep" for e in events)

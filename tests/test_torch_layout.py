@@ -128,6 +128,7 @@ _MODULES = [
     "sigfish_tpu_torch.parallel.distributed",
     "sigfish_tpu_torch.parallel.shard",
     "sigfish_tpu_torch.runtime.pipeline",
+    "sigfish_tpu_torch.runtime.trace",
     "sigfish_tpu_torch.scripts",
     "sigfish_tpu_torch.scripts.bench_alu_peak",
     "sigfish_tpu_torch.scripts.bench_carry",
@@ -141,7 +142,8 @@ _MODULES = [
 
 # the JAX package's host modules the port keeps as its own copies, equal
 # apart from their import lines (native/ differs on purpose: it builds
-# into build/ and without libdeflate/zstd where their headers are absent)
+# into build/ and without libdeflate/zstd where their headers are absent,
+# and blow5_decode notes which records it decoded)
 _COPIES = [
     "eval.py", "output.py", "io/blow5.py", "io/blow5_idx.py", "io/fasta.py",
     "models/derive_models.py", "models/export_tsv.py", "models/genref.py",
