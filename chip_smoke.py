@@ -29,7 +29,9 @@ no result line) if any of them fails:
               warps instance and one chain mixing warp counts (scores,
               and the outgoing state under carry_state_mask, against the
               plain carry chain, and the chained scores against the
-              one-shot launch); the chunked
+              one-shot launch), and the carry mode's flag-free body
+              (flags=False) the same way over the cuts with rspad all 0,
+              with start lanes and without; the chunked
               top-5 on the card against window_top5 of the one-shot
               kernel; the chunked route's clip fold (a carry chain with
               start lanes over four segments, clipped reads of qlen 25,
@@ -63,16 +65,19 @@ no result line) if any of them fails:
               kernels bit for bit at the main path's shapes: the one-shot
               scores (every warps instance), and the carry kernel's
               scores and outgoing state over two chained segments
-              (fresh, then carried state) at the instance carry_warps
-              picks, with no start lanes and with start lanes and one
-              row in ten clipped as in phase 6 (the state there under
-              carry_state_mask); the carry kernel's table of ms per segment launch
-              for each warps instance at B = 16, 128, 512 and 1,024
-              (sigfish_tpu_torch.scripts.bench_carry) and at B=512 with
-              start lanes 0 (the instance without FS0), B=512's SM cycles
-              per diagonal beside the probe's ceiling, and its inner
-              loop's SASS instructions per diagonal where cuobjdump
-              exists; then a table of the one-shot
+              (fresh, then carried state) at the flag-aware instance
+              carry_warps picks and at the flag-free body (over the
+              segments with rspad all 0), each with no start lanes and
+              with start lanes and one row in ten clipped as in phase 6
+              (the state there under carry_state_mask); the flag-free
+              body's ms per launch at phase 6's shape and its bound at
+              4 ops a cell; the carry kernel's table of ms per segment
+              launch for each body and warps instance at B = 16, 128, 512
+              and 1,024 (sigfish_tpu_torch.scripts.bench_carry) and at
+              B=512 with start lanes 0 (the flag-aware instance without
+              FS0), B=512's SM cycles per diagonal beside the probe's
+              ceiling, and its inner loops' SASS instructions per
+              diagonal where cuobjdump exists; then a table of the one-shot
               kernel's ms per launch for each warps instance at B = 16,
               64, 128, 256, 512 and 1,024 over the phase-4 reference, the
               instance ops/sdtw_wavefront.wavefront_warps picks marked
@@ -989,7 +994,7 @@ def main(argv=None) -> None:
     from sigfish_tpu_torch.ops import alu_peak as apm
     from sigfish_tpu_torch.ops import layout
     from sigfish_tpu_torch.ops import sdtw_wavefront as wfm
-    from sigfish_tpu_torch.ops.sdtw_wavefront import OPS_PER_CELL
+    from sigfish_tpu_torch.ops.sdtw_wavefront import NOFLAG_OPS_PER_CELL, OPS_PER_CELL
     from sigfish_tpu_torch.ops.candidates_dev import topk_candidates, window_top5
     from sigfish_tpu_torch.ops import chunked_ref as crm
     from sigfish_tpu_torch.ops.chunked_ref import (
@@ -1131,8 +1136,11 @@ def main(argv=None) -> None:
             """The carry mode chained over `cuts`, every warps instance and
             one chain mixing warp counts, against one plain carry chain:
             scores, and the state under carry_state_mask; the chained
-            scores against `one`, the one-shot launch's. Returns the
-            largest error."""
+            scores against `one`, the one-shot launch's. Then, where the
+            flag-free body is built for Q (and std is off), its instances
+            chained over the same cuts of a flag-free copy of the segment
+            (r all 0), against a plain chain and a one-shot launch over that
+            copy. Returns the largest error."""
             B, Q = q.shape
             t0 = time.time()
             plain, st_p = [], wfm.carry_fresh_state(B, Q, dev)
@@ -1168,6 +1176,44 @@ def main(argv=None) -> None:
                     fail(f"chained carry launches differ from one wavefront launch ({label}, "
                          f"Q={Q}, warps {chain})")
             print(f"  (plain carry chain {plain_s:.1f} s)")
+            warps_nf = [w for w in warps_q if wfm.noflag_built(Q, w)]
+            if std or not warps_nf:
+                return worst
+            r0 = torch.zeros_like(r)
+            plain, st_p = [], wfm.carry_fresh_state(B, Q, dev)
+            for lo, hi in zip(cuts[:-1], cuts[1:]):
+                plain.append(wfm.wavefront_plain(q, y[:, lo:hi], r0[:, lo:hi], lane, sl, std, *st_p))
+                st_p = plain[-1][1:]
+            one0 = wfm.sdtw_wavefront(q, y, r0, lane, start_lanes=sl)
+            for w in warps_nf:
+                st_k, parts, ok, err_nf = wfm.carry_fresh_state(B, Q, dev), [], True, 0.0
+                n0 = wfm.sdtw_wavefront_carry.launches_noflag
+                for (lo, hi), want in zip(zip(cuts[:-1], cuts[1:]), plain):
+                    out_k = wfm.sdtw_wavefront_carry(q, y[:, lo:hi], r0[:, lo:hi], *st_k,
+                                                     lane, sl, std, warps=w, flags=False)
+                    torch.cuda.synchronize()
+                    ok = ok and bits_equal(out_k[0], want[0])
+                    err_nf = max(err_nf, abs_err(out_k[0], want[0]))
+                    for a, b, m in zip(out_k[1:], want[1:], masks):
+                        ok = ok and bits_equal(a[m], b[m])
+                        err_nf = max(err_nf, abs_err(a[m], b[m]))
+                    st_k = out_k[1:]
+                    parts.append(out_k[0])
+                n_nf = wfm.sdtw_wavefront_carry.launches_noflag - n0
+                same = bits_equal(torch.cat(parts, dim=1), one0)
+                worst = max(worst, err_nf)
+                print(f"carry flag-free body {label}: Q={Q} segments {cuts} with no reset flag, "
+                      f"warps={w} ({n_nf} flag-free launches), scores and masked state "
+                      f"bitwise_equal={ok}, chained == one launch: {same}, max_abs_err={err_nf}")
+                if n_nf != len(plain):
+                    fail(f"{n_nf} of {len(plain)} flags=False launches ran the flag-free body "
+                         f"({label}, Q={Q}, warps={w})")
+                if not ok:
+                    fail(f"the carry kernel's flag-free body differs from its plain version "
+                         f"({label}, Q={Q}, warps={w})")
+                if not same:
+                    fail(f"chained flag-free carry launches differ from one wavefront launch "
+                         f"({label}, Q={Q}, warps={w})")
             return worst
 
         for label, q_h, fs_h, std in (
@@ -1403,21 +1449,28 @@ def main(argv=None) -> None:
               f"plain version {plain_ms:.1f} ms; card: {smi}")
 
         # the carry kernel at the chunked route's shape: its first two
-        # segments of the phase-4 reference, chained from a fresh state at
-        # the instance carry_warps picks, each held bit for bit to the
-        # plain version's: with no start lanes (the FS0 instance) the scores
-        # and the four outgoing state tensors; with start lanes and one row
-        # in ten clipped, as phase 6's batches have them, the scores and
-        # the state under carry_state_mask. Then its table of ms per
-        # segment launch by B and warps over the first segment, B=512's
-        # cycles per diagonal and the SASS count (scripts/bench_carry.py)
+        # segments of the phase-4 reference, chained from a fresh state,
+        # each held bit for bit to the plain version's: the flag-aware
+        # instance carry_warps picks, with no start lanes (the FS0
+        # instance) the scores and the four outgoing state tensors, with
+        # start lanes and one row in ten clipped, as phase 6's batches have
+        # them, the scores and the state under carry_state_mask; then the
+        # flag-free body, which runs most of phase 6's launches, the same
+        # two ways over the segments with no reset flag (rspad all 0). Then
+        # the flag-free body's ms per launch at phase 6's shape (start
+        # lanes, one row in ten clipped) and with none, and the carry table
+        # of ms per segment launch by B, body and warps over the first
+        # segment, B=512's cycles per diagonal and the SASS count
+        # (scripts/bench_carry.py)
         yps, rps, _, Ds, _ = prepare_chunked_inputs(
             state.ref_cat, state.reset, valid_h, pad_q, W, target=32768)
         if yps.shape[0] < 2:
             fail(f"the phase-4 reference gives {yps.shape[0]} segments of {Ds}; want 2")
         yps = torch.from_numpy(yps).to(dev)
         rps = torch.from_numpy(rps).to(dev)
+        rps0 = torch.zeros_like(rps)
         c_pick = wfm.carry_warps(BATCH, pad_q)
+        c_pick_nf = wfm.carry_warps(BATCH, pad_q, flags=False)
         q_h = q.cpu().numpy()
         rows_sl = np.arange(9, BATCH, 10)
         qlens_sl = np.full(BATCH, W, np.int32)
@@ -1425,51 +1478,85 @@ def main(argv=None) -> None:
         q_sl, _, _ = layout.make_query_batch([q_h[i, :n] for i, n in enumerate(qlens_sl)],
                                              pad_q=pad_q)
         q_sl, fs_sl = layout.shift_queries_for_clip(q_sl, qlens_sl, W - 1)
-        plain_times = {}
-        for sl_label, q_c, sl_c in (("no start lanes", q, None),
-                                    ("start lanes, one row in ten clipped", td(q_sl), td(fs_sl))):
-            masks = wfm.carry_state_mask(sl_c, BATCH, pad_q, dev)
-            st_k = st_p = wfm.carry_fresh_state(BATCH, pad_q, dev)
-            plain_times[sl_c is not None] = []
-            for s_i in range(2):
-                out_k = wfm.sdtw_wavefront_carry(q_c, yps[s_i], rps[s_i], *st_k, W - 1, sl_c)
-                t, out_p = once_ms(lambda: wfm.wavefront_plain(
-                    q_c, yps[s_i], rps[s_i], W - 1, sl_c, False, *st_p))
-                plain_times[sl_c is not None].append(t)
-                pairs = [(out_k[0], out_p[0])] + [
-                    (a[m], b[m]) for a, b, m in zip(out_k[1:], out_p[1:], masks)]
-                ok = all(bits_equal(a, b) for a, b in pairs)
-                carry_err = max([carry_err] + [abs_err(a, b) for a, b in pairs])
-                print(f"carry B={BATCH} Q={pad_q} Ds={Ds} segment {s_i} "
-                      f"({'fresh' if s_i == 0 else 'carried'} state), {sl_label}: scores and "
-                      f"{'masked ' if sl_c is not None else ''}state bitwise_equal={ok}")
-                if not ok:
-                    fail(f"carry kernel differs from its plain version at the chunked route's "
-                         f"shape (segment {s_i}, {sl_label})")
-                st_k, st_p = out_k[1:], out_p[1:]
+        q_sl, fs_sl = td(q_sl), td(fs_sl)
+        plain_times = {True: {}, False: {}}
+        carry_err_nf = 0.0
+        for flags, r_segs, body in ((True, rps, "flag-aware"), (False, rps0, "flag-free body")):
+            for sl_label, q_c, sl_c in (("no start lanes", q, None),
+                                        ("start lanes, one row in ten clipped", q_sl, fs_sl)):
+                masks = wfm.carry_state_mask(sl_c, BATCH, pad_q, dev)
+                st_k = st_p = wfm.carry_fresh_state(BATCH, pad_q, dev)
+                times = plain_times[flags][sl_c is not None] = []
+                for s_i in range(2):
+                    n0 = wfm.sdtw_wavefront_carry.launches_noflag
+                    out_k = wfm.sdtw_wavefront_carry(q_c, yps[s_i], r_segs[s_i], *st_k, W - 1, sl_c,
+                                                     flags=flags)
+                    if wfm.sdtw_wavefront_carry.launches_noflag - n0 != int(not flags):
+                        fail(f"a flags={flags} launch at the chunked route's shape ran the wrong body")
+                    t, out_p = once_ms(lambda: wfm.wavefront_plain(
+                        q_c, yps[s_i], r_segs[s_i], W - 1, sl_c, False, *st_p))
+                    times.append(t)
+                    pairs = [(out_k[0], out_p[0])] + [
+                        (a[m], b[m]) for a, b, m in zip(out_k[1:], out_p[1:], masks)]
+                    ok = all(bits_equal(a, b) for a, b in pairs)
+                    errs = [abs_err(a, b) for a, b in pairs]
+                    carry_err = max([carry_err] + errs)
+                    if not flags:
+                        carry_err_nf = max([carry_err_nf] + errs)
+                    print(f"carry {body} B={BATCH} Q={pad_q} Ds={Ds} warps="
+                          f"{c_pick if flags else c_pick_nf} segment {s_i} "
+                          f"({'fresh' if s_i == 0 else 'carried'} state), {sl_label}: scores and "
+                          f"{'masked ' if sl_c is not None else ''}state bitwise_equal={ok}")
+                    if not ok:
+                        fail(f"carry kernel ({body}) differs from its plain version at the chunked "
+                             f"route's shape (segment {s_i}, {sl_label})")
+                    st_k, st_p = out_k[1:], out_p[1:]
         del out_k, out_p, st_k, st_p, pairs, q_c, sl_c
+        st0 = wfm.carry_fresh_state(BATCH, pad_q, dev)
+        c_ms_nf_sl = median_ms(lambda: wfm.sdtw_wavefront_carry(
+            q_sl, yps[0], rps0[0], *st0, W - 1, fs_sl, flags=False), 5)
+        c_ms_nf = median_ms(lambda: wfm.sdtw_wavefront_carry(
+            q, yps[0], rps0[0], *st0, W - 1, flags=False), 5)
+        del st0
         carry_bench = bench_carry.main(y=yps[0], r=rps[0])
-        del yps, rps
+        del yps, rps, rps0
         c_ms_fs0 = carry_bench["table"][str(BATCH)][str(c_pick)]
         c_ms_sl = carry_bench["b512_start_lanes"][str(c_pick)]
         c_ms1 = carry_bench["table"][str(BATCH)]["1"]
         c_cells = BATCH * pad_q * Ds
         c_bytes = 4 * (BATCH * pad_q + 2 * Ds + BATCH * Ds + 2 * (2 * BATCH * pad_q + 2 * pad_q))
         c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes, issue)
+        # the flag-free body reads neither rspad nor the incoming rswin
+        c_bytes_nf = c_bytes - 4 * (Ds + pad_q)
+        c_nf_bound_ms, c_nf_bound_by = bound(NOFLAG_OPS_PER_CELL * c_cells, c_bytes_nf, issue)
         c_ceil_ms = c_cells / sol / 1e6
         clk_max = carry_bench["clock_max_mhz"]
-        print(f"carry B={BATCH} Q={pad_q} Ds={Ds} warps={c_pick}: {c_ms_fs0:.3f} ms per segment "
-              f"launch with no start lanes ({c_ms1:.3f} at 1 warp), {c_ms_sl:.3f} with start lanes, "
-              f"{c_cells / c_ms_fs0 / 1e6:.1f} Gcell/s, bound {c_bound_ms:.3f} ms by {c_bound_by} "
-              f"({c_bound_ms / c_ms_fs0:.1%} of it, {c_bound_ms / c_ms_sl:.1%} with start lanes), "
+
+        def cyc(t_ms):
+            return t_ms * 1e-3 * clk_max * 1e6 / Ds
+
+        print(f"carry flag-free body B={BATCH} Q={pad_q} Ds={Ds} warps={c_pick_nf}: {c_ms_nf_sl:.3f} ms "
+              f"per segment launch with start lanes, one row in ten clipped (phase 6's launches), "
+              f"{c_ms_nf:.3f} with none (median of 5), {c_cells / c_ms_nf_sl / 1e6:.1f} Gcell/s, "
+              f"bound {c_nf_bound_ms:.3f} ms by {c_nf_bound_by} ({NOFLAG_OPS_PER_CELL} ops/cell; "
+              f"{c_nf_bound_ms / c_ms_nf_sl:.1%} of it, {c_nf_bound_ms / c_ms_nf:.1%} with no start "
+              f"lanes); {cyc(c_ms_nf_sl):.1f} / {cyc(c_ms_nf):.1f} SM cycles per diagonal; SASS "
+              f"instructions per diagonal {carry_bench['sass_per_diagonal_noflag'] or 'not counted'}; "
+              f"plain version {plain_times[False][True][0]:.1f} ms with start lanes, "
+              f"{plain_times[False][False][0]:.1f} with none (fresh state); card: {smi}")
+        print(f"carry flag-aware B={BATCH} Q={pad_q} Ds={Ds} warps={c_pick}: {c_ms_fs0:.3f} ms per "
+              f"segment launch with no start lanes ({c_ms1:.3f} at 1 warp), {c_ms_sl:.3f} with start "
+              f"lanes, {c_cells / c_ms_fs0 / 1e6:.1f} Gcell/s, bound {c_bound_ms:.3f} ms by "
+              f"{c_bound_by} ({OPS_PER_CELL} ops/cell; {c_bound_ms / c_ms_fs0:.1%} of it, "
+              f"{c_bound_ms / c_ms_sl:.1%} with start lanes), "
               f"{c_ceil_ms:.3f} ms at the probe's {sol:.1f} Gstep/s; "
-              f"{c_ms_fs0 * 1e-3 * clk_max * 1e6 / Ds:.1f} SM cycles per diagonal against "
-              f"{c_ceil_ms * 1e-3 * clk_max * 1e6 / Ds:.1f} at the probe's ceiling and "
-              f"{c_bound_ms * 1e-3 * clk_max * 1e6 / Ds:.1f} at the bound ({clk_max:.0f} MHz); "
+              f"{cyc(c_ms_fs0):.1f} SM cycles per diagonal against "
+              f"{cyc(c_ceil_ms):.1f} at the probe's ceiling and "
+              f"{cyc(c_bound_ms):.1f} at the bound ({clk_max:.0f} MHz); "
               f"SASS instructions per diagonal {carry_bench['sass_per_diagonal'] or 'not counted'}; "
-              f"plain version {plain_times[False][0]:.1f} ms with no start lanes, "
-              f"{plain_times[True][0]:.1f} with (fresh state; {plain_times[False][1]:.1f} / "
-              f"{plain_times[True][1]:.1f} ms carried); card: {smi}")
+              f"plain version {plain_times[True][False][0]:.1f} ms with no start lanes, "
+              f"{plain_times[True][True][0]:.1f} with (fresh state; {plain_times[True][False][1]:.1f} / "
+              f"{plain_times[True][True][1]:.1f} ms carried); card: {smi}")
         print(f"alu_peak mix B={BATCH} iters={PROBE_ITERS}: {probe_ms:.3f} ms per launch, bound "
               f"{probe_bound_ms:.3f} ms by {probe_bound_by} ({probe_bound_ms / probe_ms:.1%} of the "
               f"bound at the f32 issue rate), plain version {probe_plain_ms:.1f} ms; card: {smi}")
@@ -1571,12 +1658,14 @@ def main(argv=None) -> None:
         wfm.sdtw_wavefront_carry.launches = 0
         wfm.sdtw_wavefront_carry.launches_by_warps = dict.fromkeys(wfm.WARPS, 0)
         wfm.sdtw_wavefront_carry.launches_start_lanes = 0
+        wfm.sdtw_wavefront_carry.launches_noflag = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         paf6, core6, dt6 = run_port(fa6, bl6, "cuda", state=state6)
         carry_launches = wfm.sdtw_wavefront_carry.launches
         carry_by_warps = {w: n for w, n in wfm.sdtw_wavefront_carry.launches_by_warps.items() if n}
         carry_start_lanes = wfm.sdtw_wavefront_carry.launches_start_lanes
+        carry_noflag = wfm.sdtw_wavefront_carry.launches_noflag
         oneshot_launches = wfm.sdtw_wavefront.launches
         routes = core6.routes
         n_batches6 = -(-N6_READS // BATCH)
@@ -1585,8 +1674,9 @@ def main(argv=None) -> None:
               f"{len(paf6.splitlines())} PAF lines, {dt6:.3f} s, "
               f"{core6.total_reads / dt6:.1f} reads/s end to end; card: {smi}")
         print(f"carry launches {carry_launches} (by warps per read: {carry_by_warps}; with start "
-              f"lanes: {carry_start_lanes}), one-shot launches {oneshot_launches}, routes "
-              f"{routes}; card: {smi}")
+              f"lanes: {carry_start_lanes}; flag-free body {carry_noflag}, Core.counts "
+              f"carry_noflag={core6.counts['carry_noflag']} carry_flag={core6.counts['carry_flag']}), "
+              f"one-shot launches {oneshot_launches}, routes {routes}; card: {smi}")
         print(f"peak device memory {peak_gb:.3f} GB (max_memory_allocated) beside "
               f"{oneshot_gb:.2f} GB for the one-shot (512, D) buffer alone; card: {smi}")
         if carry_launches <= 0 or routes["chunked"] <= 0:
@@ -1596,6 +1686,9 @@ def main(argv=None) -> None:
                  f"warps per read for B={BATCH} ({carry_by_warps})")
         if oneshot_launches:
             fail(f"the chunked run launched the one-shot kernel {oneshot_launches} times")
+        if carry_noflag != core6.counts["carry_noflag"] or carry_noflag < 0.9 * carry_launches:
+            fail(f"{carry_noflag} of {carry_launches} carry launches ran the flag-free body "
+                 f"(Core.counts {core6.counts}): the segments without a reset flag did not take it")
         if routes["clip_fold"] != n_batches6 or routes["chunked"] != n_batches6:
             fail(f"want the main fold and the clip fold once in each of {n_batches6} batches, "
                  f"each with clipped reads ({routes})")
@@ -1655,8 +1748,9 @@ def main(argv=None) -> None:
         print(f"per segment of {Ds6} diagonals at B={BATCH}, {rows6.size} clipped rows: "
               + ", ".join(f"{k} {d:.3f} ms on the device, {h:.3f} ms on the host"
                           for k, (d, h) in fold_ms.items())
-              + f"; carry launch {c_ms_sl:.3f} ms with start lanes, {c_ms_fs0:.3f} without "
-              f"(warps={c_pick}); card: {smi}")
+              + f"; carry launch of the flag-free body {c_ms_nf_sl:.3f} ms with start lanes, "
+              f"{c_ms_nf:.3f} without (warps={c_pick_nf}); of the flag-aware instance "
+              f"{c_ms_sl:.3f} / {c_ms_fs0:.3f} (warps={c_pick}); card: {smi}")
         del yps6, rps6, vs6, ts6, ls6, clip6, window6, sc6
 
         by_id6 = {ln.split("\t")[0]: ln for ln in paf6.splitlines()}
@@ -2952,9 +3046,13 @@ def main(argv=None) -> None:
               f"{N7_READS / dt7:.1f}, scan {N7_READS / dt13r:.1f}; phase 13 took "
               f"{time.time() - t13:.1f} s; card: {smi}")
 
-        # the carry entry times the instance phase 6 launched (every launch
-        # with start lanes, checked above); the start lanes add B i32 reads
+        # the carry entry times the body that runs most of phase 6's
+        # launches, the flag-free one with start lanes (one row in ten
+        # clipped), and the flag-aware instance with start lanes, which runs
+        # the rest; the start lanes add B i32 reads to each
         c_bound_ms, c_bound_by = bound(OPS_PER_CELL * c_cells, c_bytes + 4 * BATCH, issue)
+        c_nf_bound_ms, c_nf_bound_by = bound(NOFLAG_OPS_PER_CELL * c_cells, c_bytes_nf + 4 * BATCH,
+                                             issue)
         result = {"kernels": [
             {
                 "name": "sdtw_wavefront",
@@ -2998,17 +3096,28 @@ def main(argv=None) -> None:
                 "launches_hosts": launches11["sdtw_wavefront_carry"],
                 "launches_mesh": n10g["carry"],
                 "max_abs_err": carry_err,
-                "ms": c_ms_sl,
-                "plain_ms": plain_times[True][0],
-                "bound_ms": c_bound_ms,
-                "bound_by": c_bound_by,
+                "ms": c_ms_nf_sl,
+                "plain_ms": plain_times[False][True][0],
+                "bound_ms": c_nf_bound_ms,
+                "bound_by": c_nf_bound_by,
                 "library_ms": None,
-                "warps": {str(BATCH): c_pick},
+                "warps": {str(BATCH): c_pick_nf},
                 "launches_by_warps": {str(w): n for w, n in carry_by_warps.items()},
                 "launches_start_lanes": carry_start_lanes,
-                "ms_no_start_lanes": c_ms_fs0,
-                "ms_by_warps": carry_bench["table"][str(BATCH)],
-                "ms_by_warps_start_lanes": carry_bench["b512_start_lanes"],
+                "launches_noflag": carry_noflag,
+                "max_abs_err_noflag": carry_err_nf,
+                "ms_noflag_no_start_lanes": c_ms_nf,
+                "ms_by_warps_noflag": carry_bench["table_noflag"][str(BATCH)],
+                "ms_by_warps_noflag_clipped": carry_bench["table_clipped_noflag"][str(BATCH)],
+                "sass_per_diagonal_noflag": carry_bench["sass_per_diagonal_noflag"],
+                "warps_flag": c_pick,
+                "ms_flag": c_ms_sl,
+                "plain_ms_flag": plain_times[True][True][0],
+                "bound_ms_flag": c_bound_ms,
+                "bound_by_flag": c_bound_by,
+                "ms_flag_no_start_lanes": c_ms_fs0,
+                "ms_by_warps_flag": carry_bench["table"][str(BATCH)],
+                "ms_by_warps_flag_start_lanes": carry_bench["b512_start_lanes"],
                 "launches_std": carry_launches_std,
                 "ms_std_q512": c_ms_std,
                 "plain_ms_std_q512": c_plain_ms_std,

@@ -121,35 +121,73 @@
 // when they use different warp counts. With one warp the wrap is the
 // roll's and the whole state is exact.
 //
-// Without start lanes (the main fold) the carry mode runs the FS0
-// instance: the free-start row is row 0, given by its inputs (above), so a
-// cell has no compare against the free-start row.
+// Without start lanes the flag-aware carry mode runs the FS0 instance:
+// the free-start row is row 0, given by its inputs (above), so a cell has
+// no compare against the free-start row.
+//
+// The flag-free body (carry_noflag_kernel, entry sf_wavefront_carry_noflag)
+// runs each segment of the chunked route's main fold that has no reset
+// flag set in its diagonals nor in the Q-1 columns before them that its
+// incoming window holds (ops/chunked_ref.flag_free_segments): all but the
+// few that hold or follow a track start or the PAD flush, ~288 of a
+// bacterial genome's ~291. The flag-aware instances run the rest, and
+// every other caller (the mesh ring, --dtw-std). The two chain in any
+// order and at any warp counts, as each leaves the state carry_state_mask
+// guarantees. Its cell is the recurrence alone, three
+// instructions: x - y, one DPX min of up, left and diag, and |x - y| + min
+// (the abs an operand modifier of the add). Each elision gives the plain
+// version's bits because every A lies in [+0, BIG] (above):
+// - no reset flag: with the flag 0, min-or-BIG(left, diag) is
+//   max(min(left, diag), +0) = min(left, diag) bit for bit; the body reads
+//   no flag, and writes the outgoing rswin as zeros, the plain version's
+//   window under the precondition;
+// - the min on bit patterns: non-negative floats, +0 to BIG, order as
+//   their bits do as signed ints (no -0 arises: fabsf and sums of
+//   non-negative values give +0), so __vimin3_s32 on the bits is the min;
+// - the free-start row once a step: a read's start lane s is the same in
+//   all its warps, so each warp branches once, before its tile loop, to a
+//   copy of the loop for the register s % ROWS (or to the copy without a
+//   free-start row where it holds none), in which the lane that holds row
+//   s selects 0 for that row's up operand, one select a step: local +
+//   min(0, ld) = local for every ld in [+0, BIG]. s = 0 costs nothing:
+//   warp 0's lane 0 reads 0 as its up input from a tile of zeros, as the
+//   other warps read theirs from the ring. Rows below s compute garbage
+//   that row s, which takes nothing from its neighbours, never passes on;
+//   carry_state_mask leaves them out. Full-length reads and the bucket's
+//   padding rows (start lane 0) run at the FS0 pace in every warp, however
+//   many clipped reads share the launch;
+// - the emitted row: only the warp that holds it emits, from the register
+//   lane % ROWS picked by the same branch, outside the loop;
+// - the reference window: steps run in groups of four, d % 4 known at
+//   compile time, and row r's value at step d is step d - r's input, kept
+//   in yr[(d - r) % 4] (ROWS <= 4): the window slides by renaming, with no
+//   move;
+// - the handoff: only the warps below the last hold the store of their
+//   last row (a third choice of copy), one store a step straight from
+//   the registers that hold it; lane 0's inputs are read at a group's
+//   start, not prefetched into registers carried round the loop, which
+//   cost a move each (bench_carry's SASS counts showed both).
 //
 // What bounds the carry mode at the main fold's shape (B=512, Q=256,
-// 32,000 diagonals; chip_smoke.py phase 5 and scripts/bench_carry.py on
-// an H100). At one warp per read a step cost ~215 SM cycles for ~127
-// SASS instructions: the step's shuffles and the reset select (which
-// ptxas made a compare, a move of BIG and two predicated instructions per
-// cell), a compare and a select per cell against the free-start row and
-// another per cell for the emitted row, with one warp a scheduler to hide
-// nothing. The cuts, all kept, each because phase 5's table showed it
-// helping:
-// - rows over 2 warps per read (~1.9 warps a scheduler; 180 cycles alone);
-// - the reset flag as 0 or BIG with a max (MAXFLAG);
-// - the FS0 instance, no per-cell compare against the free-start row;
-// - in the FS0 instance, the emitted row picked once a step by a tree of
-//   selects (pick_row), and warp 0's BIG up inputs read from a tile
-//   (bigs), as the other warps read theirs, instead of selected. (In the
-//   instances with start lanes they made ptxas spill, so those keep the
-//   one-shot mode's form.)
-// 2 warps per read stay the faster up to B=512 (carry_warps); PERF.md
-// has the cycles and instructions per diagonal of each instance. The
-// one-shot mode keeps its selects: the max form made its 1- and 4-warp
-// instances slower. The launch's last 1-3 steps run one at a time after
-// the groups of four: a cut-short group (a break among the shuffles) made
-// ptxas guard every shuffle against divergence, and the 2-warp instance
-// 40% slower. Two groups a loop pass, as at 4 warps, made the 2-warp
-// carry instance slower.
+// 32,000 diagonals; scripts/bench_carry.py on an H100, PERF.md has the
+// numbers). Issue: a step is paid in instructions at about 1.9 SM cycles
+// each with two warps a scheduler, in every instance measured, so an
+// instruction less a step is time less. The flag-aware FS0 instance at 2
+// warps per read issues 42.5 SASS instructions per diagonal per warp (52.5
+// with start lanes: a compare and select per cell against the free-start
+// row), the reset select, the window's moves and the emitted row's tree
+// of selects (pick_row) among them; the flag-free body 18.75 to 24.75 over
+// its copies at 2 warps, of which 12 are its cells'. The cuts kept in the
+// flag-aware instances, each because phase 5's table showed it helping:
+// rows over 2 warps per read (~1.9 warps a scheduler); the reset flag as 0
+// or BIG with a max; the FS0 instance; in it, pick_row and warp 0's BIG up
+// inputs read from a tile (bigs) instead of selected (in the instances
+// with start lanes they made ptxas spill). The one-shot mode keeps its
+// selects: the max form made its 1- and 4-warp instances slower. The
+// launch's last 1-3 steps run after the groups of four in both: a
+// cut-short group (a break among the shuffles) made ptxas guard every
+// shuffle against divergence, and the 2-warp instance 40% slower. Two
+// groups a loop pass made the 2-warp flag-aware instance slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -645,6 +683,294 @@ int launch(const float* queries, const float* ypad, const float* rspad,
   return (int)cudaGetLastError();
 }
 
+// ---- The carry mode's flag-free body (sf_wavefront_carry_noflag) ----
+//
+// Its own kernel and step, sharing no logic with the instances above. A
+// cell is the recurrence alone: x - y, min(up, left, diag) in one DPX
+// instruction, and |x - y| + min (the abs an operand modifier of the
+// add). No reset flag, no compare against the free-start row, no pick of
+// the emitted row and no move of the reference window happens in a cell
+// or a step; each is paid once a launch, a warp or a tile instead (the
+// note at the top has why each gives the plain version's bits).
+
+// f(integral_constant<int, v>) for the v in [LO, HI) that equals `v`
+// (none if no v does): a runtime value, warp-uniform, turned into a
+// compile-time one once, outside every loop.
+template <int LO, int HI, class F>
+__device__ __forceinline__ void with_const(int v, F&& f) {
+  if constexpr (LO < HI) {
+    if (v == LO) {
+      f(std::integral_constant<int, LO>{});
+    } else {
+      with_const<LO + 1, HI>(v, f);
+    }
+  }
+}
+
+// f(integral_constant<int, j>) for j = 0 .. N-1, in order
+template <int N, class F>
+__device__ __forceinline__ void unroll(F&& f) {
+  if constexpr (N > 0) {
+    unroll<N - 1>(f);
+    f(std::integral_constant<int, N - 1>{});
+  }
+}
+
+// min(up, left, diag) of three values in [+0, BIG] on their bit patterns:
+// non-negative floats order as their bits do as signed ints, so Hopper's
+// three-way integer min (DPX) gives the float min's bits
+__device__ __forceinline__ float min3(float up, float left, float dg) {
+  return __int_as_float(__vimin3_s32(__float_as_int(up), __float_as_int(left), __float_as_int(dg)));
+}
+
+// One read a group of WARPS warps, warp k on rows [32k*ROWS, 32(k+1)*ROWS)
+// as in the instances above (the same handoff ring and barriers), with
+// ROWS in {1, 2, 4} and WARPS > 1. Its precondition beside theirs: no
+// reset flag is set in the segment's diagonals nor in the Q-1 columns
+// before them that the incoming window holds
+// (ops/chunked_ref.flag_free_segments); it reads no flag and writes the
+// outgoing rswin as zeros.
+template <int ROWS, int WARPS>
+__global__ void __launch_bounds__(Block<WARPS>::kThreads)
+carry_noflag_kernel(const float* __restrict__ queries,    // (B, Q)
+                    const float* __restrict__ ypad,       // (D,)
+                    const int* __restrict__ start_lanes,  // (B,) or null
+                    float* __restrict__ out,              // (B, D)
+                    Carry c, int B, int D, int lane) {
+  static_assert(WARPS == 2 || WARPS == 4 || WARPS == 8, "WARPS in {2, 4, 8}");
+  static_assert(ROWS == 1 || ROWS == 2 || ROWS == 4, "ROWS divides a group of 4 steps");
+  constexpr int READS = Block<WARPS>::kReads;
+  constexpr int Q = 32 * ROWS * WARPS;
+  constexpr int NB = WARPS - 1;  // warp boundaries of a read
+  // warp 0's reference tile, y[d0 + 1 + t]
+  __shared__ __align__(16) float ys[READS][32];
+  // the handoff rings: diagonal d0 + 1 + j of a tile in slot tile % kRing,
+  // entry j: the warp below's last row's A and reference value
+  __shared__ __align__(16) float h_a[READS][NB][kRing][32];
+  __shared__ __align__(16) float h_y[READS][NB][kRing][32];
+  __shared__ uint64_t bar_full[READS][NB][kRing];
+  __shared__ uint64_t bar_empty[READS][NB][kRing];
+  __shared__ __align__(16) float es[READS][32];  // the emitted values of a tile
+  // warp 0's lane 0 reads its up inputs, 0, from here as the other warps
+  // read theirs from the ring: row 0 is the free-start row (up 0)
+  __shared__ __align__(16) float zs[32];
+
+  const int t = threadIdx.x & 31;
+  const int wb = threadIdx.x >> 5;  // warp of the block
+  const int rb = wb / WARPS;        // read of the block
+  const int wk = wb - rb * WARPS;   // warp of the read
+  const int b = blockIdx.x * READS + rb;
+  if (threadIdx.x < READS * NB * kRing) {
+    mbar_init(&bar_full[0][0][0] + threadIdx.x, 1);   // lane 31 of warp k-1 arrives
+    mbar_init(&bar_empty[0][0][0] + threadIdx.x, 1);  // lane 31 of warp k arrives
+  }
+  if (threadIdx.x < 32) zs[threadIdx.x] = 0.0f;
+  __syncthreads();  // the one block-wide barrier, before any warp leaves
+  if (b >= B) return;
+
+  const int row_t = (wk * 32 + t) * ROWS;     // this lane's first row
+  const size_t row0 = (size_t)b * Q + row_t;  // this lane's first (b, row)
+  // x, A_{d-1} and A_{d-2} of the lane's rows; yr[j] is y_in of the last
+  // step d with d % 4 == j, so row r's reference value at step d is
+  // yr[(d - r) % 4]: the window slides by renaming, not by moves
+  float x[ROWS], a1[ROWS], a2[ROWS], yr[4];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    x[r] = queries[row0 + r];
+    // a2 holds A_{d-2} unrolled (see the flag-aware kernel); its last row
+    // is never read as a diagonal neighbour
+    a1[r] = c.a1_in[row0 + r];
+    a2[r] = r + 1 < ROWS ? c.a2_in[row0 + r + 1] : kBig;
+    yr[3 - r] = c.ywin_in[row_t + r];  // step -1: d % 4 == 3
+  }
+#pragma unroll
+  for (int j = 0; j < 4 - ROWS; ++j) yr[j] = kPad;  // never read
+  // A_{d-2} of the row above this lane's first; BIG for row 0
+  float prev_up = row_t == 0 ? kBig : c.a2_in[row0];
+
+  const bool first = wk == 0;  // stages the reference tiles
+  const bool consumes = wk > 0;
+  const bool produces = wk < WARPS - 1;
+  // the free-start row s: 0 is row 0's up input from zs; else the lane
+  // that holds it (one warp of the read) selects 0 for its up operand, on
+  // the register s % ROWS, once a step
+  const int s = start_lanes ? start_lanes[b] : 0;
+  const int lo_row = wk * 32 * ROWS;
+  const bool has_fs = s > 0 && s >= lo_row && s < lo_row + 32 * ROWS;
+  const bool fs_lane = has_fs && t == ((s / ROWS) & 31);
+  const bool has_em = lane / (32 * ROWS) == wk;  // holds the emitted row
+  const bool emit_lane = has_em && t == ((lane / ROWS) & 31);
+
+  // warp 0's reference prefetch: lane t holds y[d0 + 33 + t] for the next tile
+  float ny = 0.0f;
+  if (first) ny = t + 1 < D ? ypad[t + 1] : kPad;
+  float* orow = out + (size_t)b * D;
+  // lane 0's inputs on a tile's first step: the warp below's last row on
+  // the diagonal before it (before the launch's first, the incoming
+  // state's row); in warp 0, y[d0] and 0
+  float cy, ca;
+  if (first) {
+    cy = ypad[0];
+    ca = 0.0f;
+  } else {
+    const int below = lo_row - 1;  // the warp below's last row
+    cy = c.ywin_in[below];
+    ca = c.a1_in[(size_t)b * Q + below];
+  }
+
+  // the sweep, for this warp's free-start register FSR and emitted register
+  // EMR (-1: none in this warp), and whether it hands its last row up
+  // (PROD): one copy of the tile loop per combination
+  auto sweep = [&](auto fsr_c, auto emr_c, auto prod_c) {
+    constexpr int FSR = decltype(fsr_c)::value;
+    constexpr int EMR = decltype(emr_c)::value;
+    constexpr bool PROD = decltype(prod_c)::value;
+    float* ha = h_a[rb][PROD ? wk : 0][0];  // this warp's ring, slot 0
+    float* hy = h_y[rb][PROD ? wk : 0][0];
+    // step k of a tile, J = its d % 4; lane 0 takes (y0, a0), the warp
+    // below's last row; the emitted row's new value goes to e
+    auto step = [&](auto j_c, float y0, float a0, float& e, int k, int slot) {
+      constexpr int J = decltype(j_c)::value;
+      // lane t-1's last row on the diagonal before; lane 0 takes the
+      // input from below, which every lane holds
+      const float y_up = __shfl_up_sync(kFull, yr[(J - ROWS) & 3], 1);
+      const float a_up = __shfl_up_sync(kFull, a1[ROWS - 1], 1);
+      const float up_in = t == 0 ? a0 : a_up;
+      yr[J] = t == 0 ? y0 : y_up;
+#pragma unroll
+      for (int r = ROWS - 1; r >= 0; --r) {
+        float up = r > 0 ? a1[r - 1] : up_in;
+        if (r == FSR) up = fs_lane ? 0.0f : up;
+        const float dg = r > 0 ? a2[r - 1] : prev_up;
+        const float left = a1[r];
+        const float diff = x[r] - yr[(J - r) & 3];
+        a2[r] = left;
+        a1[r] = fabsf(diff) + min3(up, left, dg);
+      }
+      prev_up = up_in;
+      if constexpr (EMR >= 0) e = a1[EMR];
+      if (PROD && t == 31) {  // the last row, for the warp above
+        ha[slot * 32 + k] = a1[ROWS - 1];
+        hy[slot * 32 + k] = yr[(J - (ROWS - 1)) & 3];
+      }
+    };
+    for (int d0 = 0, tile = 0; d0 < D; d0 += 32, ++tile) {
+      const int slot = tile % kRing;
+      if (first) {
+        __syncwarp();
+        ys[rb][t] = ny;
+        __syncwarp();
+        const int dn = d0 + 33 + t;
+        ny = dn < D ? ypad[dn] : kPad;
+      }
+      const int steps = min(32, D - d0);
+      if (consumes) mbar_wait(&bar_full[rb][wk - 1][slot], (tile / kRing) & 1);
+      if (PROD && tile >= kRing) mbar_wait(&bar_empty[rb][wk][slot], (tile / kRing - 1) & 1);
+      // lane 0's inputs, read by every lane (a broadcast) four steps at a
+      // time: step k takes entry k-1 of the tile, step 0 the last tile's
+      // entry 31
+      const int wsrc = first ? 0 : wk - 1;
+      const float* fy = first ? ys[rb] : h_y[rb][wsrc][slot];
+      const float* fa = first ? zs : h_a[rb][wsrc][slot];
+      const float4* sy = reinterpret_cast<const float4*>(fy);
+      const float4* sa = reinterpret_cast<const float4*>(fa);
+      float4* es4 = reinterpret_cast<float4*>(es[rb]);
+      const int whole = steps & ~3;
+      for (int k0 = 0; k0 < whole; k0 += 4) {
+        const float4 gy = sy[k0 >> 2], ga = sa[k0 >> 2];
+        float e[4];
+        step(std::integral_constant<int, 0>{}, cy, ca, e[0], k0, slot);
+        step(std::integral_constant<int, 1>{}, gy.x, ga.x, e[1], k0 + 1, slot);
+        step(std::integral_constant<int, 2>{}, gy.y, ga.y, e[2], k0 + 2, slot);
+        step(std::integral_constant<int, 3>{}, gy.z, ga.z, e[3], k0 + 3, slot);
+        cy = gy.w;
+        ca = ga.w;
+        if constexpr (EMR >= 0) {
+          if (emit_lane) es4[k0 >> 2] = make_float4(e[0], e[1], e[2], e[3]);
+        }
+      }
+      // the launch's last 1-3 steps, past its last whole group: its last
+      // diagonal's state leaves, so nothing runs past it
+      if (whole < steps) {
+        unroll<3>([&](auto j_c) {
+          constexpr int J = decltype(j_c)::value;
+          if (whole + J < steps) {
+            float e = 0.0f;
+            step(j_c, J == 0 ? cy : fy[whole + J - 1], J == 0 ? ca : fa[whole + J - 1], e,
+                 whole + J, slot);
+            if (EMR >= 0 && emit_lane) es[rb][whole + J] = e;
+          }
+        });
+      }
+      if (t == 31) {
+        if (PROD) mbar_arrive(&bar_full[rb][wk][slot]);
+        if (consumes) mbar_arrive(&bar_empty[rb][wk - 1][slot]);
+      }
+      if constexpr (EMR >= 0) {
+        __syncwarp();
+        if (t < steps) orow[d0 + t] = es[rb][t];
+        __syncwarp();
+      }
+    }
+  };
+  with_const<-1, ROWS>(has_fs ? s % ROWS : -1, [&](auto fsr_c) {
+    with_const<-1, ROWS>(has_em ? lane % ROWS : -1, [&](auto emr_c) {
+      if (produces) {
+        sweep(fsr_c, emr_c, std::true_type{});
+      } else {
+        sweep(fsr_c, emr_c, std::false_type{});
+      }
+    });
+  });
+
+  // the state after the last diagonal, rolled back into the carry form;
+  // each warp writes its own rows when it is done
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    c.a1_out[row0 + r] = a1[r];
+    if (!(row_t == 0 && r == 0)) c.a2_out[row0 + r] = r > 0 ? a2[r - 1] : prev_up;
+  }
+  // the rolled element 0 is A_{d-2}[Q-1], held by the last warp
+  if (wk == WARPS - 1 && t == 31) c.a2_out[(size_t)b * Q] = a2[ROWS - 1];
+  if (b == 0) {  // every read holds the same window; no flag is set in it
+    with_const<0, 4>((D - 1) & 3, [&](auto j_c) {
+      constexpr int J = decltype(j_c)::value;  // the last step's d % 4
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        c.ywin_out[row_t + r] = yr[(J - r) & 3];
+        c.rswin_out[row_t + r] = 0.0f;
+      }
+    });
+  }
+}
+
+template <int ROWS, int WARPS>
+int launch_noflag_rows(const float* q, const float* yp, const int* sl, float* out,
+                       const Carry& c, int B, int D, int lane, cudaStream_t stream) {
+  constexpr int R = Block<WARPS>::kReads;
+  carry_noflag_kernel<ROWS, WARPS>
+      <<<dim3((B + R - 1) / R), dim3(Block<WARPS>::kThreads), 0, stream>>>(q, yp, sl, out, c, B, D, lane);
+  return 0;
+}
+
+// The flag-free instances (ops/sdtw_wavefront.noflag_built): 2 warps per
+// read at Q = 64, 128 and 256 (1, 2 and 4 rows a lane), the chunked
+// route's pick at every B. Few, as each holds a copy of its loop for every
+// free-start and emitted register.
+int launch_noflag(const float* q, const float* yp, const int* sl, float* out,
+                  const Carry& c, int B, int Q, int D, int lane, int warps,
+                  cudaStream_t s) {
+  if (lane < 0 || lane >= Q) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaErrorInvalidValue;
+  switch (Q * 16 + warps) {
+    case 64 * 16 + 2: err = launch_noflag_rows<1, 2>(q, yp, sl, out, c, B, D, lane, s); break;
+    case 128 * 16 + 2: err = launch_noflag_rows<2, 2>(q, yp, sl, out, c, B, D, lane, s); break;
+    case 256 * 16 + 2: err = launch_noflag_rows<4, 2>(q, yp, sl, out, c, B, D, lane, s); break;
+  }
+  if (err != 0) return err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entries, bound with ctypes. Each launches on `stream`, allocates
@@ -681,4 +1007,22 @@ extern "C" int sf_wavefront_carry(const float* queries, const float* ypad,
   const Carry c = {a1_in, a2_in, ywin_in, rswin_in, a1_out, a2_out, ywin_out, rswin_out};
   return launch(queries, ypad, rspad, start_lanes, out, c, B, Q, D, lane, std_, warps,
                 (cudaStream_t)stream);
+}
+
+// The carry mode's flag-free body: as sf_wavefront_carry without reset
+// flags (no rspad, no incoming rswin; the outgoing rswin is zeros), for a
+// segment with no flag set in its diagonals nor in the Q-1 columns before
+// them. `warps` and Q as launch_noflag lists them. Precondition:
+// every start lane <= lane; the outputs must not alias the inputs.
+extern "C" int sf_wavefront_carry_noflag(const float* queries, const float* ypad,
+                                         const int* start_lanes, const float* a1_in,
+                                         const float* a2_in, const float* ywin_in,
+                                         float* out, float* a1_out, float* a2_out,
+                                         float* ywin_out, float* rswin_out, int B, int Q,
+                                         int D, int lane, int warps, void* stream) {
+  if (B <= 0) return 0;
+  if (D <= 0 || !a1_in || !a2_in || !ywin_in) return (int)cudaErrorInvalidValue;
+  const Carry c = {a1_in, a2_in, ywin_in, nullptr, a1_out, a2_out, ywin_out, rswin_out};
+  return launch_noflag(queries, ypad, start_lanes, out, c, B, Q, D, lane, warps,
+                       (cudaStream_t)stream);
 }

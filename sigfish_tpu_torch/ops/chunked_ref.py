@@ -48,7 +48,10 @@ the segment that holds it: the one-shot corners, bit for bit, with no
 
 The segment loop is on the host: segment offsets are Python ints, and
 the launches queue on one stream, each seeing the previous one's state.
-The accumulators are updated in place.
+The accumulators are updated in place. A segment that flag_free_segments
+finds without a reset flag (all but the few that hold a track start or
+the PAD flush, or see one in their incoming window) runs the carry
+kernel's flag-free body (sdtw_wavefront_carry(..., flags=False)).
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ import torch
 
 from .candidates_dev import BIG, _pack, _select_latest_min
 from .layout import PAD
-from .sdtw_wavefront import carry_fresh_state, sdtw_wavefront_carry
+from .sdtw_wavefront import carry_body, carry_fresh_state, carry_warps, sdtw_wavefront_carry
 
 # chunk once the diagonal-indexed score buffer would pass this many
 # columns (the JAX package's threshold; 4*B*D bytes at B=512 is 2 GB)
@@ -118,6 +121,21 @@ def prepare_chunked_inputs(
         Ds,
         (R + W - 1) // W,
     )
+
+
+def flag_free_segments(rspad_seg: np.ndarray, Q: int) -> np.ndarray:
+    """(S,) bool: segment s has no reset flag set in its own diagonals
+    nor in the Q-1 columns before them, which its incoming window holds
+    and its rows read (the fresh state's window before segment 0 holds
+    none), so its carry launch may take flags=False. rspad_seg: (S, 1,
+    Ds) as prepare_chunked_inputs gives it."""
+    S, _, Ds = rspad_seg.shape
+    flags = rspad_seg.reshape(S * Ds) > 0.5
+    # prefix counts of set flags: segment s reads [s*Ds - (Q-1), (s+1)*Ds)
+    cum = np.concatenate([[0], np.cumsum(flags, dtype=np.int64)])
+    lo = np.maximum(np.arange(S) * Ds - (Q - 1), 0)
+    hi = np.arange(1, S + 1) * Ds
+    return cum[hi] == cum[lo]
 
 
 def prepare_clip_inputs(
@@ -322,20 +340,28 @@ def carry_chain(
     folds: list,
     start_lanes: torch.Tensor | None = None,
     std: bool = False,        # boundary-anchored DTW (--dtw-std)
-) -> None:
+    flag_free=None,           # (S,) bools: flag_free_segments; None: none is
+) -> dict[str, int]:
     """Stream the reference through the carry kernel, one launch per
     segment from a fresh state, and hand each segment's (B, Ds) scores
     to every fold's update(s, scores). The same start lanes and std go
-    to every launch."""
+    to every launch; segment s takes flags=False where flag_free[s].
+    Returns the launches of each body (carry_body): {"noflag": n,
+    "flag": m}."""
     B, Q = queries.shape
     a1, a2, ywin, rswin = carry_fresh_state(B, Q, queries.device)
+    bodies = {"noflag": 0, "flag": 0}
     for s in range(ypad_seg.shape[0]):
+        flags = flag_free is None or not flag_free[s]
+        warps = carry_warps(B, Q, flags)
+        bodies[carry_body(Q, warps, std, flags)] += 1
         scores, a1, a2, ywin, rswin = sdtw_wavefront_carry(
             queries, ypad_seg[s], rspad_seg[s], a1, a2, ywin, rswin,
-            lane, start_lanes=start_lanes, std=std,
+            lane, start_lanes=start_lanes, std=std, warps=warps, flags=flags,
         )
         for fold in folds:
             fold.update(s, scores)
+    return bodies
 
 
 def sdtw_wavefront_chunked_top5(

@@ -35,6 +35,12 @@ mode's outgoing state differs from the roll's only in the entries
 carry_state_mask leaves out, which no row at or above the start lane
 ever reads.
 
+A carry segment whose diagonals, and the Q-1 columns before them that
+its incoming window holds, have no reset flag set may run the carry
+mode's flag-free body (sdtw_wavefront_carry(..., flags=False);
+ops/chunked_ref.flag_free_segments finds such segments): there every
+min-or-BIG is the min, so a cell is the recurrence alone.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches csrc/wavefront.cu or raises.
 """
@@ -72,11 +78,20 @@ _ONESHOT_WARPS = {
 # per segment launch at Q=256 over Ds=32,000 on an H100 (PERF.md)
 _CARRY_TWO_WARPS_MAX_B = 512
 
+# the flag-free body's instances (csrc/wavefront.cu, launch_noflag), as
+# (Q, warps per read)
+_NOFLAG_BUILT = frozenset({(64, 2), (128, 2), (256, 2)})
+
 # f32 operations the recurrence needs per DP cell, the count every bound
 # of the sweep is computed from: sub and abs (local), min(left, diag),
 # the reset select, min with up, add, and the free-start select. Moving
 # values between lanes and picking the emitted lane are not counted.
 OPS_PER_CELL = 7
+
+# the same for the carry mode's flag-free body, whose cell needs neither
+# select: sub, min(left, diag), min with up, add (the abs an operand
+# modifier), as the benchmark's sdtw_roofline_pct counts a cell
+NOFLAG_OPS_PER_CELL = 4
 
 
 def carry_fresh_state(B: int, Q: int, device) -> tuple[torch.Tensor, ...]:
@@ -169,14 +184,33 @@ def wavefront_warps(B: int, Q: int) -> int:
     return _built_warps(want, Q)
 
 
-def carry_warps(B: int, Q: int) -> int:
+def carry_warps(B: int, Q: int, flags: bool = True) -> int:
     """Warps per read for a carry launch of B reads of Q rows: 2 up to
     B=512 (the chunked route's main fold), 1 beyond, from the carry
     mode's own table. Its cells are cheaper than the one-shot mode's (no
     compare per cell without start lanes, reset flags as 0 or BIG), so
     fewer warps per read pay off sooner. The largest count built for Q
-    at or below the table's."""
+    at or below the table's. With flags=False (a segment that may run
+    the flag-free body), 2 at every B where that body is built for Q:
+    at Q=256 it beat 4 and 8 warps from B=16 to 1,024
+    (scripts/bench_carry.py, PERF.md)."""
+    if not flags and noflag_built(Q, 2):
+        return 2
     return _built_warps(2 if B <= _CARRY_TWO_WARPS_MAX_B else 1, Q)
+
+
+def noflag_built(Q: int, warps: int) -> bool:
+    """Whether the carry mode's flag-free body is built for Q rows at
+    `warps` warps per read: 2 warps at Q = 64, 128 and 256 (1, 2 and 4
+    rows a lane)."""
+    return (Q, warps) in _NOFLAG_BUILT
+
+
+def carry_body(Q: int, warps: int, std: bool = False, flags: bool = True) -> str:
+    """The body a carry launch runs: "noflag" where the caller vouches
+    for no reset flag (flags=False), std is off and noflag_built(Q,
+    warps); else "flag", the flag-aware instances."""
+    return "noflag" if not flags and not std and noflag_built(Q, warps) else "flag"
 
 
 def _built_warps(want: int, Q: int) -> int:
@@ -304,7 +338,8 @@ def sdtw_wavefront_carry(
     lane: int,
     start_lanes: torch.Tensor | None = None,
     std: bool = False,
-    warps: int | None = None,   # warps per read; None: carry_warps(B, Q)
+    warps: int | None = None,   # warps per read; None: carry_warps(B, Q, flags)
+    flags: bool = True,         # False: no reset flag set in the segment nor in rswin
 ):
     """sdtw_wavefront over one reference segment with explicit
     cross-segment state; returns (scores (B, D), a1, a2, ywin, rswin).
@@ -322,11 +357,18 @@ def sdtw_wavefront_carry(
     all of the outgoing state; with start lanes s, the state under
     carry_state_mask (a1 rows >= s, the rolled a2's elements 0 and
     s+1..Q-1, all of ywin and rswin). The rest, rows below s, no row >= s
-    ever reads, so a chain may mix warp counts from launch to launch.
+    ever reads, so a chain may mix warp counts, and bodies, from launch
+    to launch.
+
+    flags=False promises that no reset flag is set in the segment's rspad
+    nor in rswin's first Q-1 entries (the columns the segment reads):
+    where carry_body says so, the flag-free body runs, which reads
+    neither and returns rswin as zeros, the plain version's bits under
+    that promise. The plain version checks the promise and raises.
     CPU tensors run wavefront_plain; CUDA tensors launch the kernel's
     carry mode, counted in sdtw_wavefront_carry.launches, per warp count
-    in sdtw_wavefront_carry.launches_by_warps, when start lanes are
-    given (the instance without FS0) in
+    in sdtw_wavefront_carry.launches_by_warps, the flag-free body's in
+    sdtw_wavefront_carry.launches_noflag, when start lanes are given in
     sdtw_wavefront_carry.launches_start_lanes and, with std=True, in
     sdtw_wavefront_carry.launches_std, or raise."""
     _check(queries, ypad, rspad, lane, start_lanes)
@@ -342,6 +384,8 @@ def sdtw_wavefront_carry(
         if t.device != queries.device:
             raise ValueError(f"sdtw_wavefront_carry: {name} on {t.device}, queries on {queries.device}")
     if queries.device.type == "cpu":
+        if not flags and (bool((rspad > 0.5).any()) or bool((rswin[:, : Q - 1] > 0.5).any())):
+            raise ValueError("sdtw_wavefront_carry: flags=False with a reset flag set")
         return wavefront_plain(queries, ypad, rspad, lane, start_lanes, std, a1, a2, ywin, rswin)
     if queries.device.type != "cuda":
         raise ValueError(f"sdtw_wavefront_carry: unsupported device {queries.device}")
@@ -353,7 +397,7 @@ def sdtw_wavefront_carry(
     if D < 1:
         raise ValueError("sdtw_wavefront_carry: empty segment")
     if warps is None:
-        warps = carry_warps(B, Q)
+        warps = carry_warps(B, Q, flags)
     lib = _library()
     q = queries.contiguous()
     state_in = [t.contiguous() for t in (a1, a2, ywin, rswin)]
@@ -363,18 +407,28 @@ def sdtw_wavefront_carry(
     # be overwritten in place
     state_out = [torch.empty_like(t) for t in state_in]
     yp, rp = ypad.contiguous(), rspad.contiguous()
+    noflag = carry_body(Q, warps, std, flags) == "noflag"
     with torch.cuda.device(q.device):
-        err = lib.sf_wavefront_carry(
-            q.data_ptr(), yp.data_ptr(), rp.data_ptr(),
-            None if sl is None else sl.data_ptr(),
-            *(t.data_ptr() for t in state_in), out.data_ptr(),
-            *(t.data_ptr() for t in state_out),
-            B, Q, D, lane, int(std), warps, torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        sl_p = None if sl is None else sl.data_ptr()
+        if noflag:
+            a1_i, a2_i, yw_i, _ = (t.data_ptr() for t in state_in)
+            err = lib.sf_wavefront_carry_noflag(
+                q.data_ptr(), yp.data_ptr(), sl_p, a1_i, a2_i, yw_i, out.data_ptr(),
+                *(t.data_ptr() for t in state_out), B, Q, D, lane, warps, stream,
+            )
+        else:
+            err = lib.sf_wavefront_carry(
+                q.data_ptr(), yp.data_ptr(), rp.data_ptr(), sl_p,
+                *(t.data_ptr() for t in state_in), out.data_ptr(),
+                *(t.data_ptr() for t in state_out),
+                B, Q, D, lane, int(std), warps, stream,
+            )
     if err != 0:
         raise RuntimeError(f"sdtw_wavefront_carry: CUDA launch failed (cudaError {err})")
     sdtw_wavefront_carry.launches += 1
     sdtw_wavefront_carry.launches_by_warps[warps] += 1
+    sdtw_wavefront_carry.launches_noflag += noflag
     sdtw_wavefront_carry.launches_start_lanes += sl is not None
     sdtw_wavefront_carry.launches_std += bool(std)
     return (out, *state_out)
@@ -384,23 +438,30 @@ sdtw_wavefront_carry.launches = 0
 sdtw_wavefront_carry.launches_by_warps = dict.fromkeys(WARPS, 0)
 sdtw_wavefront_carry.launches_start_lanes = 0
 sdtw_wavefront_carry.launches_std = 0
+sdtw_wavefront_carry.launches_noflag = 0
 
 _lib: ctypes.CDLL | None = None
 
 
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the library's C entries' argument types (every pointer
+    and the stream as c_void_p, so none is cut to 32 bits)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sf_wavefront.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.sf_wavefront.restype = ctypes.c_int
+    lib.sf_wavefront_carry.argtypes = [p] * 13 + [i, i, i, i, i, i, p]
+    lib.sf_wavefront_carry.restype = ctypes.c_int
+    lib.sf_wavefront_carry_noflag.argtypes = [p] * 11 + [i, i, i, i, i, p]
+    lib.sf_wavefront_carry_noflag.restype = ctypes.c_int
+    return lib
+
+
 def _library() -> ctypes.CDLL:
-    """csrc/wavefront.cu's library, built on first use, with its C
-    entry's argument types declared (every pointer and the stream as
-    c_void_p, so none is cut to 32 bits)."""
+    """csrc/wavefront.cu's library, built on first use, its C entries
+    declared."""
     global _lib
     if _lib is None:
         from ..kernels.build import load_library
 
-        lib = load_library("wavefront")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sf_wavefront.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.sf_wavefront.restype = ctypes.c_int
-        lib.sf_wavefront_carry.argtypes = [p] * 13 + [i, i, i, i, i, i, p]
-        lib.sf_wavefront_carry.restype = ctypes.c_int
-        _lib = lib
+        _lib = _declare(load_library("wavefront"))
     return _lib

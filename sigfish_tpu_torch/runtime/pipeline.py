@@ -109,6 +109,7 @@ from ..ops.chunked_ref import (
     WindowFold,
     carry_chain,
     clip_window_bases,
+    flag_free_segments,
     prepare_chunked_inputs,
     prepare_clip_inputs,
 )
@@ -418,9 +419,10 @@ class Core:
         self._routes_lock = threading.Lock()
         # added once a batch by submit_batch: the records decoded by the
         # native library and in Python, and the sDTW batch's rows, its
-        # live reads and the bucket's padding
+        # live reads and the bucket's padding; by each carry chain: its
+        # launches of the flag-free body and of the flag-aware instances
         self.counts = {"decode_native": 0, "decode_python": 0, "rows_live": 0,
-                       "rows_padded": 0}
+                       "rows_padded": 0, "carry_noflag": 0, "carry_flag": 0}
         # --profile-cpu on the card: CUDA event pairs around each route's
         # device work, read by span_seconds once the run has drained;
         # "host_stages": around each bucket's work on host_stream, in every
@@ -601,6 +603,12 @@ class Core:
     def _count_route(self, route: str, n: int = 1) -> None:
         with self._routes_lock:
             self.routes[route] += n
+
+    def _count_bodies(self, bodies: dict[str, int]) -> None:
+        """Add a carry chain's launches of each body to counts."""
+        with self._routes_lock:
+            for body, n in bodies.items():
+                self.counts["carry_" + body] += n
 
     @contextlib.contextmanager
     def _span(self, route: str):
@@ -948,8 +956,9 @@ class Core:
     def _chunk_inputs(self, Q: int) -> tuple:
         """The chunked route's segment buffers for a Q-wide batch (those of
         prepare_chunked_inputs and prepare_clip_inputs), on the device for
-        the life of the Core: (ypad_seg, rspad_seg, valid_seg, track_seg,
-        local_seg, nwin_tot)."""
+        the life of the Core, and on the host the segments that may run
+        the carry kernel's flag-free body (flag_free_segments): (ypad_seg,
+        rspad_seg, valid_seg, track_seg, local_seg, nwin_tot, flag_free)."""
         key = (Q, self.opt.ref_chunk)
         if key not in self._wf_chunk_cache:
             W = self.opt.query_size
@@ -960,7 +969,7 @@ class Core:
             ts, ls = prepare_clip_inputs(self.track_offsets, self.track_sizes, W, vs.shape[0], Ds)
             self._wf_chunk_cache[key] = tuple(
                 torch.from_numpy(a).to(self.device) for a in (yps, rps, vs, ts, ls)
-            ) + (nwin_tot,)
+            ) + (nwin_tot, flag_free_segments(rps, Q).tolist())
         return self._wf_chunk_cache[key]
 
     def _chunked_candidates_submit(
@@ -982,7 +991,7 @@ class Core:
         W = self.opt.query_size
         B, Q = qb.shape
         dev = self.device
-        yps, rps, vs, ts, ls, nwin_tot = self._chunk_inputs(Q)
+        yps, rps, vs, ts, ls, nwin_tot, flag_free = self._chunk_inputs(Q)
         handle = dict(packed=None, B=B)
         window = clip = sl_dev = None
         if clip_rows.size < int(np.count_nonzero(qlens > 0)):
@@ -1002,7 +1011,8 @@ class Core:
             return handle
         self._count_route("chunked")
         with self._span("chunked"):
-            carry_chain(torch.from_numpy(qb).to(dev), yps, rps, W - 1, folds, sl_dev)
+            self._count_bodies(carry_chain(torch.from_numpy(qb).to(dev), yps, rps, W - 1, folds,
+                                           sl_dev, flag_free=flag_free))
             if window is not None:
                 handle["packed"] = _start_host_copy(window.top5())
             if clip is not None:
@@ -1056,7 +1066,7 @@ class Core:
             yps, rps, vs = self._chunk_inputs(Q)[:3]
             fold = CornerFold(B, self.std_corner_diags, vs.shape[1], dev)
             with self._span("chunked"):
-                carry_chain(q, yps, rps, W - 1, [fold], sl, std=True)
+                self._count_bodies(carry_chain(q, yps, rps, W - 1, [fold], sl, std=True))
                 corners = _start_host_copy(fold.corners)
             return dict(corners=corners)
         self._count_route("oneshot")

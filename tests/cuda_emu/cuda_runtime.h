@@ -1,6 +1,7 @@
 // A CPU stand-in for the CUDA runtime, enough to run the warp-level kernels
-// (sigfish_tpu_torch/csrc/gap_dtw.cu, banded_dtw.cu, scan.cu) on the host in
-// tests/test_torch_train_emulated.py and tests/test_torch_scan_emulated.py:
+// (sigfish_tpu_torch/csrc/gap_dtw.cu, banded_dtw.cu, scan.cu, wavefront.cu)
+// on the host in tests/test_torch_train_emulated.py,
+// tests/test_torch_scan_emulated.py and tests/test_torch_wavefront.py:
 // each block's threads are std::threads that run the kernel's code as
 // written, a warp's 32 in lockstep at every shuffle, ballot and __syncwarp
 // (a barrier exchange), the block's at __syncthreads. Blocks run one after
@@ -8,8 +9,9 @@
 // that leans on launch order fails here), so __shared__ variables are
 // statics and the dynamic shared memory a buffer a block. The test rewrites
 // each launch `k<<<grid, block, smem, stream>>>(args)` as
-// `emu_launch(grid, block, smem, k, args)` and the one inline PTX line; it
-// needs g++ with C++20.
+// `emu_launch(grid, block, smem, k, args)` and the one inline PTX line
+// (wavefront.cu's mbarrier helpers call emu_mbar_* instead); it needs g++
+// with C++20.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -29,6 +31,7 @@
 #define __restrict__
 #define __shared__ static
 #define __launch_bounds__(x)
+#define __align__(n) __attribute__((aligned(n)))
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -44,6 +47,21 @@ struct uint2 {
   unsigned x, y;
 };
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+}
+inline int __float_as_int(float f) {
+  int i;
+  std::memcpy(&i, &f, sizeof i);
+  return i;
+}
+inline int __vimin3_s32(int a, int b, int c) { return std::min(std::min(a, b), c); }
 using std::max;
 using std::min;
 
@@ -92,6 +110,30 @@ cudaError_t cudaFuncSetAttribute(F, int, int) {
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
+// An mbarrier of one word: bit 63 the phase, bits 32-62 the arrivals a
+// phase expects, bits 0-31 those still pending. A wait on parity p returns
+// once the phase of that parity has completed.
+inline void emu_mbar_init(uint64_t* bar, unsigned count) {
+  std::atomic_ref<uint64_t>(*bar).store(((uint64_t)count << 32) | count);
+}
+inline void emu_mbar_arrive(uint64_t* bar) {
+  std::atomic_ref<uint64_t> a(*bar);
+  uint64_t old = a.load(), nw;
+  do {
+    const uint64_t expected = (old >> 32) & 0x7fffffffu, pending = old & 0xffffffffu;
+    nw = pending == 1 ? ((~old & (1ull << 63)) | (expected << 32) | expected) : old - 1;
+  } while (!a.compare_exchange_weak(old, nw));
+}
+inline void emu_mbar_wait(uint64_t* bar, unsigned parity) {
+  while ((std::atomic_ref<uint64_t>(*bar).load() >> 63) == parity) std::this_thread::yield();
+}
+
+template <class K, class... A>
+void emu_launch(int grid, int block, size_t smem, K kernel, A... args);
+template <class K, class... A>
+void emu_launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
+  emu_launch(grid.x, block.x, smem, kernel, args...);
+}
 template <class K, class... A>
 void emu_launch(int grid, int block, size_t smem, K kernel, A... args) {
   for (int b = grid - 1; b >= 0; --b) {

@@ -1,13 +1,14 @@
 """The port's warp-level CUDA kernels (csrc/gap_dtw.cu, csrc/banded_dtw.cu,
-csrc/scan.cu) built for the CPU: each source as written, with its
-launches (and the trainer kernels' dynamic shared memory and one inline
-PTX line) rewritten for tests/cuda_emu/cuda_runtime.h (a stand-in runtime
-whose blocks are std::threads, every warp in lockstep at its shuffles and
+csrc/scan.cu, csrc/wavefront.cu) built for the CPU: each source as
+written, with its launches (and the trainer kernels' dynamic shared
+memory and one inline PTX line, the wavefront's mbarrier helpers)
+rewritten for tests/cuda_emu/cuda_runtime.h (a stand-in runtime whose
+blocks are std::threads, every warp in lockstep at its shuffles and
 ballots), compiled with g++ and bound with the wrappers' own argument
 types. Shared by tests/test_torch_train_emulated.py,
-tests/test_torch_train.py and tests/test_torch_scan_emulated.py; the
-card tests (tests/test_torch_gpu.py) take scan.cu's piece-count rewrite
-from here too."""
+tests/test_torch_train.py, tests/test_torch_scan_emulated.py and
+tests/test_torch_wavefront.py; the card tests (tests/test_torch_gpu.py)
+take scan.cu's piece-count rewrite from here too."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import subprocess
 import pytest
 
 from sigfish_tpu_torch.ops import sdtw_scan as ss
+from sigfish_tpu_torch.ops import sdtw_wavefront as wf
 from sigfish_tpu_torch.ops import train_dtw as td
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -34,6 +36,16 @@ REWRITES = (
     (r"asm volatile\(.*\);", "s = 0;"),
 )
 
+# wavefront.cu: launches of kernel templates, and its three mbarrier
+# helpers (inline PTX) as the stand-in's
+WAVEFRONT_REWRITES = (
+    (r"(\w+<[^<>;]*>)\s*<<<([^,]+), ([^,]+), ([^,]+), [^>]+>>>\(", r"emu_launch(\2, \3, \4, \1, "),
+    (r"(?s)__device__ __forceinline__ unsigned smem_addr.*?(?=// A reset flag)",
+     "__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned n) { emu_mbar_init(bar, n); }\n"
+     "__device__ __forceinline__ void mbar_arrive(uint64_t* bar) { emu_mbar_arrive(bar); }\n"
+     "__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned p) { emu_mbar_wait(bar, p); }\n\n"),
+)
+
 # scan.cu with its piece count settable, for the tests that hold every
 # count to the plain version: emu_pieces when nonzero, else the source's
 # own rule (the source has no such knob)
@@ -43,10 +55,11 @@ PIECES_PRELUDE = 'extern "C" { int emu_pieces = 0; }'
 
 # each source's rewrites (every one must match) and its C entry's
 # declaration
-KERNEL_REWRITES = {"gap_dtw": REWRITES, "banded_dtw": REWRITES, "scan": (LAUNCH,)}
+KERNEL_REWRITES = {"gap_dtw": REWRITES, "banded_dtw": REWRITES, "scan": (LAUNCH,),
+                   "wavefront": WAVEFRONT_REWRITES}
 DECLARE = {"gap_dtw": lambda lib: td._declare(lib, "gap_dtw"),
            "banded_dtw": lambda lib: td._declare(lib, "banded_dtw"),
-           "scan": ss._declare}
+           "scan": ss._declare, "wavefront": wf._declare}
 
 
 def rewritten_source(name: str, rewrites=(), prelude: str = "") -> str:

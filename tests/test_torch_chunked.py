@@ -505,10 +505,10 @@ def _spy_chains(tpl, monkeypatch) -> list:
     seen = []
     real = tpl.carry_chain
 
-    def spy(queries, ypad_seg, rspad_seg, lane, folds, start_lanes=None):
+    def spy(queries, ypad_seg, rspad_seg, lane, folds, start_lanes=None, **kw):
         seen.append((queries.shape[0], start_lanes is not None,
                      [type(f).__name__ for f in folds]))
-        return real(queries, ypad_seg, rspad_seg, lane, folds, start_lanes)
+        return real(queries, ypad_seg, rspad_seg, lane, folds, start_lanes, **kw)
 
     monkeypatch.setattr(tpl, "carry_chain", spy)
     return seen
@@ -652,3 +652,95 @@ def test_cli_ref_chunk(workload, oneshot_paf, tmp_path):
     )
     assert r.returncode == 0, r.stderr
     assert out.read_text() == oneshot_paf
+
+
+def _flag_free_brute(rspad_seg: np.ndarray, Q: int) -> list[bool]:
+    """flag_free_segments by a scan of every column each segment reads:
+    its own diagonals and the Q-1 before them (none before column 0)."""
+    S, _, Ds = rspad_seg.shape
+    flat = rspad_seg.reshape(-1)
+    return [not any(flat[c] > 0.5 for c in range(max(0, s * Ds - (Q - 1)), (s + 1) * Ds))
+            for s in range(S)]
+
+
+@pytest.mark.parametrize("Q", [64, 256])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flag_free_segments_vs_brute_force(seed, Q):
+    """The per-segment flag table against a scan of rspad: flags at a
+    segment's first and last diagonal, Q-1 and Q diagonals before a
+    segment's first (inside and just outside its window), and at
+    random."""
+    rng = np.random.default_rng(seed)
+    S, Ds = 12, 320
+    rs = np.zeros(S * Ds, dtype=np.float32)
+    rs[3 * Ds] = 1.0                     # segment 3's first diagonal
+    rs[6 * Ds - 1] = 1.0                 # segment 5's last: segment 6 sees it
+    rs[8 * Ds - (Q - 1)] = 1.0           # inside segment 8's window
+    rs[11 * Ds - Q] = 1.0                # just outside segment 11's window
+    rs[rng.integers(0, S * Ds, size=2)] = 1.0
+    seg = rs.reshape(S, 1, Ds)
+    got = cr.flag_free_segments(seg, Q)
+    assert got.dtype == bool and got.shape == (S,)
+    assert got.tolist() == _flag_free_brute(seg, Q)
+    assert not got[3] and not got[5] and not got[6] and not got[8]
+    # the layout of prepare_chunked_inputs: track starts and the PAD flush
+    qb, fs, ypad, rspad, lane = _case(seed, W=32, Q=Q)
+    ref = ypad[0][rspad[0] < 2]
+    reset = rspad[0] > 0.5
+    yps, rps, vs, Ds2, _ = cr.prepare_chunked_inputs(ref, reset, np.ones(ref.size, bool), Q, 32,
+                                                      target=64)
+    assert cr.flag_free_segments(rps, Q).tolist() == _flag_free_brute(rps, Q)
+
+
+@pytest.mark.parametrize("clipped", [False, True])
+def test_carry_chain_flag_free_bitwise(clipped):
+    """carry_chain with the flag table gives the chain without it, bit
+    for bit (the CPU wrapper checks each flags=False launch's promise),
+    and counts each body's launches."""
+    rng = np.random.default_rng(4)
+    tracks = [rng.standard_normal(n).astype(np.float32) for n in (500, 300, 700)]
+    ref, reset, _ = layout.pad_tracks(tracks, ckpt=TD, align=32)
+    qlens = [32, 11, 27, 32, 1, 32] if clipped else [32] * 6
+    qb, qlens, _ = layout.make_query_batch(
+        [rng.standard_normal(n).astype(np.float32) for n in qlens], pad_q=64)
+    qb, fs = layout.shift_queries_for_clip(qb, qlens, 31)
+    lane = 31
+    yps, rps, vs, Ds, nwin = cr.prepare_chunked_inputs(ref, reset, np.ones(ref.size, bool), 64, 32,
+                                                       target=64)
+    table = cr.flag_free_segments(rps, 64)
+    assert table.any() and not table.all()
+    B = qb.shape[0]
+    t = torch.from_numpy
+    sl = t(fs) if clipped else None
+    folds = [cr.WindowFold(B, t(vs), 32, nwin), cr.WindowFold(B, t(vs), 32, nwin)]
+    got = cr.carry_chain(t(qb), t(yps), t(rps), lane, folds[:1], sl, flag_free=table.tolist())
+    assert got == {"noflag": int(table.sum()), "flag": int((~table).sum())}
+    assert cr.carry_chain(t(qb), t(yps), t(rps), lane, folds[1:], sl) == {
+        "noflag": 0, "flag": table.size}
+    np.testing.assert_array_equal(folds[0].top5().numpy(), folds[1].top5().numpy())
+
+
+def test_auto_route_counts_carry_bodies(workload, oneshot_paf, monkeypatch):
+    """The chunked route, auto (ref_chunk=0) or forced, runs each segment
+    that flag_free_segments clears with the flag-free body and the rest
+    flag-aware, with the one-shot route's bytes; Core.counts has each
+    body's launches."""
+    from sigfish_tpu_torch.runtime import pipeline as tpl
+    from sigfish_tpu_torch.runtime.pipeline import Core, Options, run_dtw
+
+    real = tpl.prepare_chunked_inputs
+    monkeypatch.setattr(tpl, "CHUNK_AUTO_COLS", 1024)
+    monkeypatch.setattr(tpl, "prepare_chunked_inputs",
+                        lambda *a, target=None: real(*a, target=256))
+    for ref_chunk in (0, 256):
+        core = Core(*workload, Options(query_size=W_PIPE, batch_size=8, num_thread=2,
+                                       device="cpu", ref_chunk=ref_chunk))
+        out = io.StringIO()
+        run_dtw(core, out)
+        core.close()
+        assert out.getvalue() == oneshot_paf
+        c = core.counts
+        table = core._chunk_inputs(core.pad_q)[-1]
+        chains = core.routes["chunked"]
+        assert chains > 0 and c["carry_noflag"] + c["carry_flag"] == chains * len(table)
+        assert c["carry_noflag"] == chains * sum(table) > 0 and c["carry_flag"] > 0

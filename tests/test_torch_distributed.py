@@ -372,7 +372,7 @@ def test_trace_on_the_cpu(dna8, tmp_path, capsys):
     DIR holds a Chrome trace (JSON) with the run's CPU events and its
     sf.* spans; -v 5 reports each kernel's launches in the process (none
     on the CPU) and the Core's counts (8 records decoded, one 64-row
-    bucket a batch)."""
+    bucket a batch, no carry launch)."""
     out, trace = tmp_path / "t.paf", tmp_path / "trace"
     assert cli.main(["dtw", *dna8, "--device", "cpu", "-K", str(K), "-t", "2", "-v", "5",
                      "--trace", str(trace), "-o", str(out)]) == 0
@@ -383,6 +383,7 @@ def test_trace_on_the_cpu(dna8, tmp_path, capsys):
     c = dict(kv.split("=") for kv in counts.split(": ", 1)[1].split())
     assert int(c["decode_native"]) + int(c["decode_python"]) == 8
     assert int(c["rows_live"]) + int(c["rows_padded"]) == 64 * (8 // K)
+    assert c["carry_noflag"] == c["carry_flag"] == "0"  # the one-shot route
     assert out.read_text() == run_jax(*dna8, "native", batch_size=K)[0]
     with open(cli.trace_path(str(trace), 0)) as fh:
         events = json.load(fh)["traceEvents"]

@@ -179,6 +179,94 @@ def test_clip_fold_on_the_card_vs_cpu(cuda_device, seed):
         assert torch.equal(g, w)
 
 
+# the flag-free body's instances: (W, Q, warps)
+NOFLAG = [(60, 64, 2), (100, 128, 2), (250, 256, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,Q,warps", NOFLAG)
+@pytest.mark.parametrize("clipped", [False, True])
+def test_noflag_carry_kernel_chained_bitwise_vs_plain(cuda_device, W, Q, warps, clipped):
+    """The carry mode's flag-free body at each instance, chained over
+    five uneven segments of a reference with no reset flag: scores and
+    the state under carry_state_mask equal the plain carry chain's after
+    every segment (rswin zeros), each launch counted as flag-free, and
+    the chained scores equal one one-shot launch."""
+    dev = cuda_device
+    rng = np.random.default_rng(W + Q + warps)
+    B, D = 96, 2300
+    q = torch.from_numpy(rng.standard_normal((B, Q)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.standard_normal((1, D)).astype(np.float32)).to(dev)
+    r = torch.zeros((1, D), device=dev)
+    sl = None
+    if clipped:
+        fs = np.zeros(B, dtype=np.int32)
+        fs[: B // 2] = rng.integers(1, W, size=B // 2)
+        fs[:4] = (1, 2, 3, W - 1)
+        sl = torch.from_numpy(fs).to(dev)
+    masks = wf.carry_state_mask(sl, B, Q, dev)
+    state = plain = wf.carry_fresh_state(B, Q, dev)
+    got = []
+    for lo, hi in zip((0, 1, 37, 101, 1203), (1, 37, 101, 1203, D)):
+        before = wf.sdtw_wavefront_carry.launches_noflag
+        out = wf.sdtw_wavefront_carry(q, y[:, lo:hi], r[:, lo:hi], *state, W - 1, sl,
+                                      warps=warps, flags=False)
+        want = wf.wavefront_plain(q, y[:, lo:hi], r[:, lo:hi], W - 1, sl, False, *plain)
+        torch.cuda.synchronize()
+        assert wf.sdtw_wavefront_carry.launches_noflag == before + 1
+        assert torch.equal(out[0].view(torch.int32).cpu(), want[0].view(torch.int32).cpu()), lo
+        for name, g, x, m in zip(("a1", "a2", "ywin", "rswin"), out[1:], want[1:], masks):
+            assert torch.equal(g[m].view(torch.int32).cpu(), x[m].view(torch.int32).cpu()), (name, lo)
+        got.append(out[0])
+        state, plain = out[1:], want[1:]
+    one = wf.sdtw_wavefront(q, y, r, W - 1, start_lanes=sl)
+    assert torch.equal(torch.cat(got, 1).view(torch.int32).cpu(), one.view(torch.int32).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chain_with_flag_table_on_the_card_vs_cpu(cuda_device, seed):
+    """The chunked route's chain with flag_free_segments' table: the
+    flag-free body on the segments it clears, the flag-aware instance on
+    the others (track starts, the PAD flush, their windows), both folds'
+    packed results equal to the same chain's on the CPU, bit for bit, and
+    the launches of each body as carry_chain counts them."""
+    from sigfish_tpu_torch.ops import chunked_ref as cr
+
+    W, Q = 250, 256
+    qb, fs, _, _, lane = _case(seed + 40, W, Q)
+    rng = np.random.default_rng(seed + 50)
+    sizes = [int(x) for x in rng.integers(9000, 14000, size=3)]
+    tracks = [rng.standard_normal(n).astype(np.float32) for n in sizes]
+    ref, reset, offsets = layout.pad_tracks(tracks, ckpt=512, align=W)
+    _, valid = layout.build_column_maps(offsets, ref.shape[0], track_sizes=sizes)
+    yps, rps, vs, Ds, nwin = cr.prepare_chunked_inputs(ref, reset, valid, Q, W, target=1000)
+    ts, ls = cr.prepare_clip_inputs(offsets, sizes, W, vs.shape[0], Ds)
+    table = cr.flag_free_segments(rps, Q)  # 4,000-diagonal segments, ~half of them flag-free
+    assert table.sum() >= 3 and (~table).sum() >= 3
+    qlens = np.where(fs > 0, W - fs, W).astype(np.int32)
+    rows = np.where(qlens != W)[0]
+    bases, n_win = cr.clip_window_bases(sizes, qlens[rows])
+
+    def run(dev):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        clip = cr.ClipFold(t(rows), t(qlens[rows]), t(bases), n_win, t(ts), t(ls), t(vs), W)
+        window = cr.WindowFold(qb.shape[0], t(vs), W, nwin)
+        bodies = cr.carry_chain(t(qb), t(yps), t(rps), lane, [window, clip], t(fs),
+                                flag_free=table.tolist())
+        return bodies, window.top5().view(torch.int32).cpu(), clip.top5().view(torch.int32).cpu()
+
+    before = wf.sdtw_wavefront_carry.launches_noflag
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert got[0] == {"noflag": int(table.sum()), "flag": int((~table).sum())}
+    assert wf.sdtw_wavefront_carry.launches_noflag == before + int(table.sum())
+    want = run("cpu")
+    assert got[0] == want[0]
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("ref_chunk", [-1, 300])
 def test_std_corners_on_the_card_vs_cpu(cuda_device, tmp_path, ref_chunk):

@@ -512,3 +512,225 @@ def test_sass_inner_loop_per_diagonal():
     assert v["top_per_diagonal"] == {"SHFL": 3, "FMNMX": 2.75, "BRA": 0.25}
     one_shot = bench_carry.sass_per_diagonal(_SASS, carry=False)
     assert one_shot["rows=8 warps=1 std=0 fs0=0"]["per_diagonal"] == 8
+
+
+# ---- the carry mode's flag-free body (csrc/wavefront.cu, carry_noflag_kernel)
+
+
+def _min3_bits(up, left, dg):
+    """min(up, left, diag) on the f32 bit patterns as signed ints: the
+    same value as the float min for operands in [+0, BIG], which order as
+    their bits do."""
+    m = torch.minimum(torch.minimum(up.view(torch.int32), left.view(torch.int32)),
+                      dg.view(torch.int32))
+    return m.view(torch.float32)
+
+
+def _noflag_model(queries, ypad, lane, start_lanes, warps, state, bits=False):
+    """The flag-free body's data flow at lane level, in torch: lane l =
+    32k + t of the read's 32 * warps holds rows [l*R, (l+1)*R) in R =
+    Q / (32 * warps) registers; step d is J = d % 4, and the reference
+    value of row r at step d is yr[(J - r) % 4], yr[J] taking the step's
+    new value (the window slides by renaming); a cell is |x - y| +
+    min(up, left, diag) with no flag; lane 0 of warp 0 takes 0 as its up
+    input (row 0 the free-start row), and for a start lane s > 0 the
+    lane holding row s selects 0 for the up operand of register s % R.
+    Every other lane's inputs come from the lane below, across warps too,
+    one step on, as the handoff ring gives them. bits=True takes the min
+    on the bit patterns. Returns (scores, a1, a2, ywin, rswin) as
+    sdtw_wavefront_carry does."""
+    B, Q = queries.shape
+    D = ypad.shape[1]
+    R = Q // (32 * warps)
+    L = Q // R
+    U = 4
+    assert R in (1, 2, 4) and warps in (2, 4, 8)
+    min3 = _min3_bits if bits else (lambda u, le, dg: torch.minimum(u, torch.minimum(le, dg)))
+    x = queries.reshape(B, L, R)
+    a1 = state[0].reshape(B, L, R).clone()
+    a2_in = state[1]
+    # a2[r] = A_{d-2} of row l*R + r unrolled from the rolled state; the
+    # lane's last one is never read
+    a2 = torch.cat([a2_in[:, 1:], torch.full((B, 1), layout.BIG)], dim=1).reshape(B, L, R).clone()
+    a2[:, :, R - 1] = layout.BIG
+    yr = torch.full((L, U), layout.PAD)
+    yw_in = state[2][0].reshape(L, R)
+    for r in range(R):
+        yr[:, U - 1 - r] = yw_in[:, r]
+    prev_up = a2_in.reshape(B, L, R)[:, :, 0].clone()
+    prev_up[:, 0] = layout.BIG
+    s = start_lanes.long()
+    fs = torch.zeros((B, L, R), dtype=torch.bool)
+    on = s > 0
+    fs[on, s[on] // R, s[on] % R] = True
+    zero = torch.tensor(0.0)
+    out = torch.empty((B, D), dtype=torch.float32)
+    for d in range(D):
+        J = d % U
+        y_send = yr[:, (J - R) % U]
+        a_send = a1[:, :, R - 1]
+        up_in = torch.cat([torch.zeros((B, 1)), a_send[:, :-1]], dim=1)
+        yr[:, J] = torch.cat([ypad[0, d].reshape(1), y_send[:-1]])
+        a_new = torch.empty_like(a1)
+        for r in range(R - 1, -1, -1):
+            up = a1[:, :, r - 1] if r > 0 else up_in
+            up = torch.where(fs[:, :, r], zero, up)
+            dg = a2[:, :, r - 1] if r > 0 else prev_up
+            left = a1[:, :, r]
+            diff = x[:, :, r] - yr[:, (J - r) % U]
+            a_new[:, :, r] = torch.abs(diff) + min3(up, left, dg)
+        a2, a1 = a1, a_new
+        prev_up = up_in
+        out[:, d] = a1[:, lane // R, lane % R]
+    J = (D - 1) % U
+    a2_out = torch.cat([prev_up[:, :, None], a2[:, :, : R - 1]], dim=2).reshape(B, Q)
+    a2_out[:, 0] = a2[:, L - 1, R - 1]
+    ywin = torch.stack([yr[:, (J - r) % U] for r in range(R)], dim=1).reshape(1, Q)
+    return out, a1.reshape(B, Q), a2_out, ywin, torch.zeros((1, Q))
+
+
+def _segment_resets(D, cuts, Q):
+    """(1, D) f32 reset flags for a chain cut at `cuts`: one at the first
+    diagonal of the second segment, one at the last of the third, one
+    within Q-1 of the fourth's end (the fifth sees it in its window) and
+    one Q diagonals before the sixth's first (which its window no longer
+    holds); the rest of the chain without a flag."""
+    rs = torch.zeros((1, D))
+    c = [0, *cuts]
+    rs[0, c[1]] = 1.0
+    rs[0, c[3] - 1] = 1.0
+    rs[0, c[4] - (Q - 1) // 2] = 1.0
+    rs[0, c[5] - Q] = 1.0
+    return rs
+
+
+# a chain over Q=256 diagonals cut so that segments end inside tiles and
+# groups: 1, 37, 101 (the tile's middle), 420, 700 (the resets' segments
+# are at least Q long), then the rest
+NOFLAG_CUTS = (1, 37, 101, 420, 700, 1000, 1203)
+
+
+def _noflag_chain_case(seed, W=200, Q=256, B=12):
+    """Queries, start lanes (0, then one of every residue mod 4 in both
+    halves of the rows, and W-1) and a reference for NOFLAG_CUTS."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, Q)).astype(np.float32))
+    sl = torch.tensor([0, 1, 2, 3, 4, 129, 130, 131, 132, 64, 0, W - 1][:B], dtype=torch.int32)
+    D = NOFLAG_CUTS[-1]
+    y = torch.from_numpy(rng.standard_normal((1, D)).astype(np.float32))
+    return q, sl, y, _segment_resets(D, NOFLAG_CUTS, Q), W - 1
+
+
+@pytest.mark.parametrize("bits", [False, True])
+@pytest.mark.parametrize("warps", [2, 4, 8])
+def test_noflag_body_chain_bitwise(warps, bits):
+    """The flag-free body's model, chained over uneven segments with the
+    flag-aware form (wavefront_plain, the split model's equal) wherever
+    flag_free_segments finds a flag in a segment or its window: scores
+    bitwise equal to one plain carry chain's, and the state under
+    carry_state_mask; at 2, 4 and 8 warps, with a start lane of every
+    residue mod the rows a lane and the min on floats or on bit patterns
+    (the kernel's)."""
+    from sigfish_tpu_torch.ops.chunked_ref import flag_free_segments
+
+    q, sl, y, rs, lane = _noflag_chain_case(3)
+    B, Q = q.shape
+    cuts = [0, *NOFLAG_CUTS]
+    st_m = st_p = _fresh_state(B, Q)
+    free = []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        window = torch.cat([torch.zeros(Q), rs[0]])[lo + 1 : lo + Q]  # columns lo-(Q-1) .. lo-1
+        ok = not bool((rs[0, lo:hi] > 0.5).any() or (window > 0.5).any())
+        free.append(ok)
+        if ok:
+            got = _noflag_model(q, y[:, lo:hi], lane, sl, warps, st_m, bits=bits)
+        else:
+            got = wf.wavefront_plain(q, y[:, lo:hi], rs[:, lo:hi], lane, sl, False, *st_m)
+        want = wf.wavefront_plain(q, y[:, lo:hi], rs[:, lo:hi], lane, sl, False, *st_p)
+        _assert_carry_equal(got, want, sl, f"warps={warps}, segment [{lo}, {hi}), free={ok}")
+        st_m, st_p = got[1:], want[1:]
+    # the chain has both kinds: the first segment, the sixth (its flag Q
+    # diagonals back lies outside its window) and the last are flag-free
+    assert free == [True, False, False, False, False, True, True]
+
+
+def test_noflag_free_start_select_is_local():
+    """The per-step free-start select: up 0 gives local + min(0, ld) =
+    local bit for bit for every ld in [+0, BIG], and the float min of
+    three equals the min of their bit patterns there."""
+    rng = np.random.default_rng(4)
+    vals = np.concatenate([[0.0, 1e-45, 1.0, layout.PAD, layout.BIG],
+                           np.abs(rng.standard_normal(200)) * 10.0 ** rng.integers(-30, 30, 200)])
+    v = torch.from_numpy(vals.astype(np.float32))
+    local = torch.abs(v[:, None] - v[None, :]).reshape(-1)
+    ld = v.repeat(v.numel())[: local.numel()]
+    np.testing.assert_array_equal(_bits((local + torch.minimum(torch.zeros(()), ld)).numpy()),
+                                  _bits(local.numpy()))
+    a, b, c = (torch.from_numpy(rng.permutation(vals).astype(np.float32)) for _ in range(3))
+    np.testing.assert_array_equal(_bits(_min3_bits(a, b, c).numpy()),
+                                  _bits(torch.minimum(a, torch.minimum(b, c)).numpy()))
+
+
+def test_noflag_built_and_carry_body():
+    """The flag-free body is built at 2 warps for Q = 64, 128 and 256 (1,
+    2 and 4 rows a lane) and at no other warp count; carry_body picks it
+    only without flags and std, where it is built."""
+    assert all(wf.noflag_built(Q, 2) for Q in (64, 128, 256))
+    assert not any(wf.noflag_built(256, w) for w in (1, 4, 8))
+    assert not wf.noflag_built(512, 2) and not wf.noflag_built(512, 4)
+    assert not wf.noflag_built(128, 4) and not wf.noflag_built(384, 4)
+    assert wf.carry_body(256, 2, flags=False) == "noflag"
+    assert wf.carry_body(256, 2) == "flag"
+    assert wf.carry_body(256, 2, std=True, flags=False) == "flag"
+    assert wf.carry_body(512, 2, flags=False) == "flag"
+    # a flag-free segment runs the body at 2 warps at every B where it is
+    # built for Q at 2 warps; elsewhere the flag-aware rule, whose pick
+    # carry_body then sends to the flag-aware instances
+    for B in (1, 16, 128, 512, 513, 1024, 4096):
+        assert wf.carry_warps(B, 256, flags=False) == 2
+        assert wf.carry_body(256, wf.carry_warps(B, 256, flags=False), flags=False) == "noflag"
+        assert wf.carry_warps(B, 512, flags=False) == wf.carry_warps(B, 512)
+        assert wf.carry_body(512, wf.carry_warps(B, 512, flags=False), flags=False) == "flag"
+
+
+def test_noflag_wrapper_checks_its_promise_on_the_cpu():
+    """flags=False with a set flag in the segment or in the window's
+    first Q-1 entries raises on the CPU; a flag in the window's last
+    entry, which no row reads, does not, and the result is the plain
+    version's."""
+    q, sl, y, _, lane = _noflag_chain_case(5, B=4)
+    Q = q.shape[1]
+    st = _fresh_state(4, Q)
+    r = torch.zeros((1, 50))
+    r[0, 49] = 1.0
+    with pytest.raises(ValueError):
+        wf.sdtw_wavefront_carry(q, y[:, :50], r, *st, lane, sl, flags=False)
+    rw = torch.zeros((1, Q))
+    rw[0, Q - 2] = 1.0
+    with pytest.raises(ValueError):
+        wf.sdtw_wavefront_carry(q, y[:, :50], torch.zeros((1, 50)), *st[:3], rw, lane, sl, flags=False)
+    rw = torch.zeros((1, Q))
+    rw[0, Q - 1] = 1.0
+    got = wf.sdtw_wavefront_carry(q, y[:, :50], torch.zeros((1, 50)), *st[:3], rw, lane, sl,
+                                  flags=False)
+    want = wf.wavefront_plain(q, y[:, :50], torch.zeros((1, 50)), lane, sl, False, *st[:3], rw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w.numpy()))
+
+
+def test_sass_noflag_loops_per_diagonal():
+    """scripts/bench_carry.py's count of the flag-free body: of its
+    instances only, every loop of one group of four steps (8 shuffles,
+    2 a step), the fewest and the most instructions per diagonal among
+    them and the shortest one's opcodes."""
+    from sigfish_tpu_torch.scripts import bench_carry
+
+    body = (["LDC R1, c[0x0][0x28]"] + [_SHFL] * 8 + ["FADD R4, R5, R6"] * 7 + ["BRA @1"]
+            + [_SHFL] * 8 + ["FADD R4, R5, R6"] * 11 + ["BRA @17", "EXIT"])
+    sass = "\n".join(["\tcode for sm_90a", _sass_function(
+        "_ZN12_GLOBAL__N_119carry_noflag_kernelILi4ELi2EEEvPKfS2_PKiPfNS_5CarryEiii", body)])
+    got = bench_carry.sass_noflag(sass + "\n" + _SASS)
+    assert list(got) == ["rows=4 warps=2"]
+    v = got["rows=4 warps=2"]
+    assert (v["loops"], v["per_diagonal_min"], v["per_diagonal_max"]) == (2, 4.0, 5.0)
+    assert v["top_per_diagonal"] == {"SHFL": 2.0, "FADD": 1.75, "BRA": 0.25}
